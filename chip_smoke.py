@@ -1,0 +1,629 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, so the script exits non-zero):
+
+1. Device: needs ``torch.cuda.is_available()``; prints the card's name and
+   power limit; builds the kernels from ``deadtrees_tpu_torch/ops/csrc``.
+2. Kernel vs plain: ``fused_inverted_residual_chw`` and its two passes on
+   the card against their plain PyTorch versions on the same CUDA tensors,
+   at all 22 decoder-block shapes of the flagship at 512² (bs 4, float32
+   and bfloat16) and at 256² and 1024² (bs 1, bfloat16), a ragged shape
+   and the generalized modes.
+3. The slice at full width: the EfficientUnet++/b5 flagship from a seeded
+   generator, saved with the port's ``save_checkpoint`` and served through
+   ``TorchInference(fused_decoder="auto")`` at bs 1, 4, 32 (fused) and 64
+   (plain), against the plain model.
+4. The server (the main path whose kernel launches are counted): 8
+   concurrent PNG requests to ``serve_stdlib`` with batching on.
+5. Timings: fused vs plain latency, and each kernel's time per launch at
+   the flagship shapes beside its bound and its plain version.
+6. Profile: device time by kernel group and the device's idle share for
+   both engines at bs 4 and 32 (torch.profiler).
+
+The last line is the device record; the line before it the card's name
+and power limit, and before that one JSON object describing the kernels.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import re
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+IMG = 512
+SEED = 0
+# bars: error relative to max(1, max|ref|)
+BAR = {"float32": 1e-3, "bfloat16": 2e-2}
+FORWARD_F32_BAR = 5e-3
+AGREE_BF16 = 0.99
+# card rates for the bound (NVIDIA H100 SXM data sheet): HBM bytes/s and
+# float32 FLOP/s on the CUDA cores (the kernels' arithmetic type)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+SOURCE = "deadtrees_tpu_torch/ops/csrc/fused_ir_chw.cu"
+REPLACES = {
+    "fused_ir_chw_pass1": "deadtrees_tpu/ops/fused_mbconv.py:156",
+    "fused_ir_chw_pass2": "deadtrees_tpu/ops/fused_mbconv.py:217",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, reps: int = 21, warmup: int = 3) -> float:
+    """Median device time of one ``fn()`` over ``reps`` calls, each between
+    its own pair of CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def rel_bar(ref, dtype_name: str) -> float:
+    return BAR[dtype_name] * max(1.0, float(ref.float().abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    log("precision: cudnn.allow_tf32=False, matmul.allow_tf32=False, "
+        "float32 matmul precision 'highest' (for the float32 comparisons)")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"capability {torch.cuda.get_device_capability(0)}")
+    log(f"card: {card_line()}")
+    from deadtrees_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s for {list(_build.SOURCES)} "
+        f"(nvcc {_build.build_seconds})")
+    for name in _build.SOURCES:
+        entry, spills = "?", ""
+        for line in _build.ptxas_log(name).splitlines():
+            m = re.search(r"(pass\d)_kernelI(\w*?)EEv", line)
+            if m:
+                entry = f"{m.group(1)}<{m.group(2)}>"
+            elif "spill" in line:
+                spills = line.strip()
+            elif "Used" in line:
+                log(f"  ptxas {name} {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+
+def flagship_block_shapes(model, bsz: int, img: int = IMG):
+    """(cell, index, (B, C_in, H, W), folded params) for the 22 decoder
+    blocks of ``model`` at ``img``² input, in forward order."""
+    from deadtrees_tpu_torch.ops import fold_effunetpp_decoder
+
+    folded = fold_effunetpp_decoder(model)
+    depth = len(model.decoder_channels) - 1
+    cells = []
+    for name, cell in model.decoder.blocks.items():
+        layer = int(name.rsplit("_", 1)[1])
+        size = img // 2 ** (depth - layer)
+        cin0 = cell.conv1.block[0].in_channels
+        cout = cell.conv1.block[7].out_channels
+        cells.append((name, 0, (bsz, cin0, size, size), folded[name][0]))
+        cells.append((name, 1, (bsz, cout, size, size), folded[name][1]))
+    assert len(cells) == 22, len(cells)
+    return cells
+
+
+def random_folded(cin, cmid, cout, ksize, conv_skip, gen):
+    import torch
+
+    from deadtrees_tpu_torch.ops import FoldedBlockParams
+
+    def n(*shape, s=0.2):
+        return (torch.randn(shape, generator=gen) * s).cuda().contiguous()
+
+    return FoldedBlockParams(
+        w1=n(cin, cmid, s=cin ** -0.5), b1=n(cmid, s=0.1),
+        dw=n(ksize, ksize, cmid), b_dw=n(cmid, s=0.1),
+        cse_w1=n(cmid, 8), cse_b1=n(8, s=0.1), cse_w2=n(8, cmid),
+        cse_b2=n(cmid, s=0.1), sse_w=n(cmid, 1, s=cmid ** -0.5),
+        sse_b=n(1, s=0.1), w2=n(cmid, cout, s=cmid ** -0.5), b2=n(cout, s=0.1),
+        wsk=n(cin, cout, s=cin ** -0.5) if conv_skip else None,
+        bsk=n(cout, s=0.1) if conv_skip else None,
+    )
+
+
+def check_case(label, x, fp, errs, *, activation="hswish", ksize=3, skip="auto"):
+    """Kernel vs plain for pass 1, pass 2 and the whole block on one input."""
+    import torch
+
+    from deadtrees_tpu_torch.ops import fused_mbconv as fm
+
+    dt = "bfloat16" if x.dtype == torch.bfloat16 else "float32"
+    hw = x.shape[2] * x.shape[3]
+    h_ref, s_ref = fm.chw_pass1_reference(x, fp, activation=activation, ksize=ksize)
+    h_k, psum = fm.chw_pass1(x, fp, activation=activation, ksize=ksize)
+    torch.cuda.synchronize()
+    e_h = max_err(h_k, h_ref)
+    e_s = max_err(psum.sum(1), s_ref.sum(1)) / hw  # as a mean: what the gate reads
+    gate = fm.cse_gate(s_ref.sum(1), fp, hw)
+    o_ref = fm.chw_pass2_reference(h_ref, x, gate, fp, skip=skip)
+    o_k = fm.chw_pass2(h_ref, x, gate, fp, skip=skip)
+    blk_ref = fm.fused_inverted_residual_chw_reference(
+        x, fp, activation=activation, ksize=ksize, skip=skip)
+    blk = fm.fused_inverted_residual_chw(
+        x, fp, activation=activation, ksize=ksize, skip=skip)
+    torch.cuda.synchronize()
+    e_o = max_err(o_k, o_ref)
+    e_b = max_err(blk, blk_ref)
+    bars = (rel_bar(h_ref, dt), rel_bar(s_ref / hw, dt), rel_bar(o_ref, dt),
+            rel_bar(blk_ref, dt))
+    ok = all(e <= b for e, b in zip((e_h, e_s, e_o, e_b), bars))
+    log(f"  {label:<34} {dt:<8} pass1 h {e_h:.2e}/{bars[0]:.1e} "
+        f"mean {e_s:.2e}/{bars[1]:.1e}  pass2 {e_o:.2e}/{bars[2]:.1e}  "
+        f"block {e_b:.2e}/{bars[3]:.1e}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version: {label} {dt}")
+    errs["fused_ir_chw_pass1"] = max(errs["fused_ir_chw_pass1"], e_h)
+    errs["fused_ir_chw_pass2"] = max(errs["fused_ir_chw_pass2"], e_o)
+
+
+def phase_kernels(model, errs):
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    log(f"kernel vs plain at the 22 flagship decoder blocks ({IMG}² input, bs 4); "
+        f"bars: float32 {BAR['float32']:g}, bfloat16 {BAR['bfloat16']:g}, "
+        "times max(1, max|ref|)")
+    for name, i, shape, fp in flagship_block_shapes(model, 4):
+        x32 = torch.randn(shape, generator=gen).cuda()
+        for x in (x32, x32.to(torch.bfloat16)):
+            check_case(f"{name}.conv{i + 1} {tuple(shape[1:])}", x, fp, errs)
+    for img in (256, 1024):
+        log(f"kernel vs plain at the 22 flagship decoder blocks ({img}² input, bs 1, bf16)")
+        for name, i, shape, fp in flagship_block_shapes(model, 1, img):
+            x = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
+            check_case(f"{name}.conv{i + 1} {tuple(shape[1:])}", x, fp, errs)
+    log("ragged and generalized modes")
+    cases = [
+        # (label, cin, cout, H, W, ksize, activation, skip)
+        ("ragged 40x72 conv skip", 48, 32, 40, 72, 3, "hswish", "auto"),
+        ("ragged 40x72 identity", 48, 48, 40, 72, 3, "hswish", "auto"),
+        ("k5 silu none", 88, 40, 45, 70, 5, "silu", "none"),  # 32-channel blocks
+        ("k3 silu identity", 64, 64, 45, 70, 3, "silu", "identity"),
+        ("k5 hswish conv", 128, 96, 45, 70, 5, "hswish", "conv"),  # 64-channel blocks
+    ]
+    for label, cin, cout, hh, ww, k, act, skip in cases:
+        conv = skip == "conv" or (skip == "auto" and cin != cout)
+        fp = random_folded(cin, cin, cout, k, conv, gen)
+        x32 = torch.randn((3, cin, hh, ww), generator=gen).cuda()
+        for x in (x32, x32.to(torch.bfloat16)):
+            check_case(label, x, fp, errs, activation=act, ksize=k, skip=skip)
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+
+
+def build_flagship(path: Path):
+    """The b5 flagship from a seeded generator with randomized BN stats,
+    written with the port's save_checkpoint. Returns (hparams, model)."""
+    import torch
+
+    from deadtrees_tpu_torch.core import save_checkpoint
+    from deadtrees_tpu_torch.models import (
+        create_model,
+        init_model,
+        variables_from_state_dict,
+    )
+
+    hp = dict(architecture="efficientunet++", encoder_name="timm-efficientnet-b5",
+              in_channels=4, classes=3, decoder_channels=[256, 128, 64, 32, 16])
+    gen = torch.Generator().manual_seed(SEED)
+    model = init_model(create_model(**hp), generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(torch.rand(c, generator=gen) * 0.4 + 0.8)
+                m.bias.copy_(torch.rand(c, generator=gen) * 0.2 - 0.1)
+                m.running_mean.copy_(torch.rand(c, generator=gen) * 0.6 - 0.3)
+                m.running_var.copy_(torch.rand(c, generator=gen) * 0.6 + 0.7)
+    n_mb = sum(len(stage) for stage in model.encoder.blocks)
+    assert n_mb == 39, n_mb
+    t0 = time.perf_counter()
+    save_checkpoint(path, **variables_from_state_dict(model.state_dict()), hparams=hp)
+    log(f"flagship b5: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+        f"params, {n_mb} MBConv blocks, 22 decoder blocks; checkpoint "
+        f"{path.stat().st_size / 2**20:.1f} MiB written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return hp, model
+
+
+def phase_slice(path: Path, hp):
+    import torch
+
+    from deadtrees_tpu_torch.infer import TorchInference
+    from deadtrees_tpu_torch.models import create_model
+    from deadtrees_tpu_torch.ops import (
+        LAUNCHES,
+        fold_effunetpp_decoder,
+        fused_forward,
+        reset_launch_counts,
+    )
+
+    t0 = time.perf_counter()
+    fused = TorchInference(path, fused_decoder="auto")
+    plain = TorchInference(path)
+    log(f"TorchInference x2 loaded in {time.perf_counter() - t0:.2f} s on "
+        f"{fused.device}")
+    rng = np.random.default_rng(SEED)
+    for bs in (1, 4, 32):
+        img = rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8)
+        reset_launch_counts()
+        a = fused.run(img)
+        counts = dict(LAUNCHES)
+        b = plain.run(img)
+        assert a.shape == (bs, IMG, IMG) and a.dtype == np.uint8, a.shape
+        agree = float((a == b).mean())
+        log(f"  bf16 bs {bs:>2}: fused vs plain class-map agreement {agree:.5f} "
+            f"(bar {AGREE_BF16}); launches {counts}; classes "
+            f"{np.bincount(a.ravel(), minlength=3).tolist()}")
+        assert counts == {k: 22 for k in LAUNCHES}, counts
+        assert agree >= AGREE_BF16, agree
+    big = rng.integers(0, 256, (64, IMG, IMG, 4), dtype=np.uint8)
+    reset_launch_counts()
+    out = fused.run(big)
+    assert out.shape == (64, IMG, IMG)
+    assert all(v == 0 for v in LAUNCHES.values()), LAUNCHES
+    agree = float((out == plain.run(big)).mean())
+    log(f"  bf16 bs 64: plain route (launches {dict(LAUNCHES)}), agreement "
+        f"with the plain engine {agree:.5f}")
+    assert agree >= AGREE_BF16
+    del big, out
+
+    model32 = create_model(**hp, dtype=torch.float32)
+    model32.load_state_dict(fused.model.state_dict())
+    model32 = model32.cuda().eval()
+    folded32 = fold_effunetpp_decoder(model32)
+    with torch.no_grad():
+        for bs in (1, 4, 32):
+            img = torch.from_numpy(rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8))
+            x = fused_input(fused, img.cuda())
+            reset_launch_counts()
+            got = fused_forward(model32, folded32, x)
+            counts = dict(LAUNCHES)
+            ref = model32(x)
+            err = max_err(got, ref)
+            bar = FORWARD_F32_BAR * max(1.0, float(ref.abs().max()))
+            log(f"  f32 bs {bs:>2}: fused_forward vs model logits max err "
+                f"{err:.3e} (bar {bar:.3e}, max|ref| {float(ref.abs().max()):.3f}); "
+                f"launches {counts}")
+            assert counts == {k: 22 for k in LAUNCHES}, counts
+            assert err <= bar, err
+            del x, got, ref
+    del model32, folded32
+    torch.cuda.empty_cache()
+    return fused, plain
+
+
+def fused_input(engine, img_u8):
+    from deadtrees_tpu_torch.data import normalize
+
+    return normalize(img_u8.float(), engine.mean, engine.std).permute(0, 3, 1, 2).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# phase 4
+# ---------------------------------------------------------------------------
+
+
+def phase_server(path: Path):
+    """8 concurrent 512² PNGs through serve_stdlib with batching on; returns
+    the kernels' launch counts over the run and the dispatch count."""
+    from PIL import Image
+
+    from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from deadtrees_tpu_torch.serve import SegmentationService, serve_stdlib
+
+    service = SegmentationService(path, batch_wait_ms=2, max_batch=32)
+    server = serve_stdlib(service, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(SEED + 2)
+    uploads = []
+    for _ in range(8):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (IMG, IMG, 4), dtype=np.uint8), "RGBA").save(
+            buf, "PNG")
+        uploads.append(buf.getvalue())
+    results = [None] * 8
+
+    def post(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/segmentation", data=uploads[i],
+            headers={"Content-Type": "image/png"}, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            results[i] = (resp.status, resp.read(), dict(resp.headers))
+
+    try:
+        # warm the engine once outside the counted window (allocator, cuDNN)
+        service.engines["torch"].run(np.zeros((1, IMG, IMG, 4), np.uint8))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        batcher = service.batchers["torch"]
+        for i, r in enumerate(results):
+            assert r is not None, f"request {i} got no answer"
+            status, body, headers = r
+            mask = np.asarray(Image.open(io.BytesIO(body)))
+            assert status == 200 and mask.shape == (IMG, IMG), (status, mask.shape)
+        log(f"server: 8 concurrent {IMG}² requests -> 200 with {IMG}x{IMG} masks in "
+            f"{wall:.3f} s; {batcher.dispatches} dispatches; launches {counts}")
+        assert counts["fused_ir_chw_pass1"] == 22 * batcher.dispatches > 0, counts
+        assert counts["fused_ir_chw_pass2"] == 22 * batcher.dispatches, counts
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["models"] == ["torch"], health
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        assert 'deadtrees_requests_total{model_type="torch"} 8' in metrics, metrics
+        log(f"server: /healthz {health}; /metrics counts 8 requests")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+
+def bounds(shape, fp, skip: str, itemsize: int):
+    """(bytes, flops) each pass must move / do at this shape."""
+    bsz, cin, hh, ww = shape
+    hw = hh * ww
+    cm = fp.w1.shape[1]
+    cout = fp.w2.shape[1]
+    k = fp.dw.shape[0]
+    tile = 16 - 2 * (k // 2)  # pass-1 output tile side (psum rows)
+    n_tiles = -(-hh // tile) * -(-ww // tile)
+    w1_bytes = 4 * (fp.w1.numel() + fp.b1.numel() + fp.dw.numel() + fp.b_dw.numel())
+    p1_bytes = bsz * hw * (cin + cm) * itemsize + bsz * n_tiles * cm * 4 + w1_bytes
+    p1_flops = 2 * bsz * hw * (cin * cm + k * k * cm)
+    x_read = cin if skip != "none" else 0
+    w2_bytes = 4 * (fp.w2.numel() + fp.b2.numel() + fp.sse_w.numel() + bsz * cm
+                    + (fp.wsk.numel() + fp.bsk.numel() if skip == "conv" else 0))
+    p2_bytes = bsz * hw * (cm + x_read + cout) * itemsize + w2_bytes
+    p2_flops = 2 * bsz * hw * (cm * cout + (cin * cout if skip == "conv" else 0)) \
+        + 5 * bsz * hw * cm
+    return (p1_bytes, p1_flops), (p2_bytes, p2_flops)
+
+
+def phase_timings(model, fused, plain, card: str):
+    import torch
+
+    from deadtrees_tpu_torch.ops import fused_mbconv as fm
+
+    rng = np.random.default_rng(SEED + 3)
+    log(f"latency, fused vs plain engine (median of 7, host clock around run(), "
+        f"H2D and D2H included) on {card}")
+    for bs in (1, 4, 32):
+        img = rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8)
+        t_f, t_p = [], []
+        for engine in (fused, plain):
+            engine.run(img)
+        for _ in range(7):
+            for engine, acc in ((plain, t_p), (fused, t_f), (fused, t_f), (plain, t_p)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.run(img)
+                acc.append(time.perf_counter() - t0)
+        mf, mp = statistics.median(t_f) * 1e3, statistics.median(t_p) * 1e3
+        log(f"  bs {bs:>2}: fused {mf:.3f} ms, plain {mp:.3f} ms "
+            f"({bs * 1e3 / mf:.2f} vs {bs * 1e3 / mp:.2f} img/s)")
+
+    log(f"kernel time per launch at the flagship shapes (bf16, bs 4, CUDA events, "
+        f"median of 21) on {card}; bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, "
+        f"f32 FLOPs / {F32_FLOP_PER_S:.3g} FLOP/s)")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    tot = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+               "ops_ms": 0.0} for n in REPLACES}
+    for name, i, shape, fp in flagship_block_shapes(model, 4):
+        x = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
+        skip = "conv" if fp.wsk is not None else "identity"
+        h, psum = fm.chw_pass1(x, fp)
+        gate = fm.cse_gate(psum.sum(1), fp, shape[2] * shape[3])
+        rows = {
+            "fused_ir_chw_pass1": (lambda: fm.chw_pass1(x, fp),
+                                   lambda: fm.chw_pass1_reference(x, fp)),
+            "fused_ir_chw_pass2": (lambda: fm.chw_pass2(h, x, gate, fp, skip=skip),
+                                   lambda: fm.chw_pass2_reference(h, x, gate, fp, skip=skip)),
+        }
+        b1, b2 = bounds(shape, fp, skip, 2)
+        parts = []
+        for kname, (kern, ref), (nbytes, flops) in zip(rows, rows.values(), (b1, b2)):
+            ms = cuda_time_ms(kern)
+            pms = cuda_time_ms(ref)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / F32_FLOP_PER_S * 1e3
+            bound = max(bytes_ms, ops_ms)
+            t = tot[kname]
+            t["ms"] += ms
+            t["plain_ms"] += pms
+            t["bound_ms"] += bound
+            t["bytes_ms"] += bytes_ms
+            t["ops_ms"] += ops_ms
+            parts.append(f"{kname[-5:]} {ms:.4f} ms (plain {pms:.4f}, bound {bound:.4f} "
+                         f"{'bytes' if bytes_ms >= ops_ms else 'ops'})")
+        log(f"  {name}.conv{i + 1} {tuple(shape[1:])}: " + "; ".join(parts))
+    for kname, t in tot.items():
+        log(f"  {kname}: one forward's 22 launches {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"(bytes {t['bytes_ms']:.4f}, ops {t['ops_ms']:.4f})")
+    return tot
+
+
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+
+def _kernel_group(event) -> str:
+    name = event.get("name", "")
+    if event.get("cat") != "kernel":
+        return "copies"
+    if "pass1_kernel" in name:
+        return "fused pass 1"
+    if "pass2_kernel" in name:
+        return "fused pass 2"
+    low = name.lower()
+    if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "cutlass", "winograd")):
+        return "conv/GEMM library"
+    return "elementwise, reductions"
+
+
+def phase_profile(fused, plain, card: str) -> None:
+    """Device time by kernel group and the device's idle share for the
+    engines at bs 4 and 32 (torch.profiler, three runs after a warm-up;
+    the traces stay in build/chip_smoke/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 5)
+    trace_dir = REPO / "build" / "chip_smoke"
+    log(f"profile: torch.profiler over 3 runs of run() (H2D and D2H included), "
+        f"per run, on {card}")
+    for bs in (4, 32):
+        img = rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8)
+        for label, engine in (("fused", fused), ("plain", plain)):
+            engine.run(img)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    engine.run(img)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / 3
+            path = trace_dir / f"trace_{label}_bs{bs}.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+            groups = {}
+            for e in events:
+                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+                    g = _kernel_group(e)
+                    groups[g] = groups.get(g, 0.0) + e["dur"] / 3e3  # ms per run
+            if not groups:
+                raise RuntimeError("torch.profiler recorded no device activity")
+            busy = sum(groups.values())
+            parts = "; ".join(f"{g} {ms:.3f}" for g, ms in
+                              sorted(groups.items(), key=lambda kv: -kv[1]))
+            log(f"  {label} bs {bs:>2}: wall {wall * 1e3:.3f} ms, device busy "
+                f"{busy:.3f} ms, idle {1 - busy / (wall * 1e3):.1%}; ms by group: {parts}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs on a CUDA card", file=sys.stderr)
+        return 1
+    if not (REPO / "deadtrees_tpu_torch" / "ops" / "csrc").is_dir():
+        print(f"chip_smoke: no deadtrees_tpu_torch package next to {__file__}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    t_start = time.perf_counter()
+
+    phase_device()
+    card = card_line()
+    errs = {name: 0.0 for name in REPLACES}
+    workdir = REPO / "build" / "chip_smoke"
+    ckpt = workdir / "flagship_b5.ckpt"
+    workdir.mkdir(parents=True, exist_ok=True)
+    hp, model = build_flagship(ckpt)
+    model = model.cuda().eval()
+    phase_kernels(model, errs)
+
+    fused, plain = phase_slice(ckpt, hp)
+    counts = phase_server(ckpt)
+    tot = phase_timings(model, fused, plain, card)
+    phase_profile(fused, plain, card)
+
+    kernels = []
+    for name in REPLACES:
+        t = tot[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": counts[name],
+            "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
+            "library_ms": None,
+        })
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,84 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+These tests need a CUDA device and ``nvcc``; elsewhere they skip. The file
+imports neither JAX nor the JAX package, so it also runs on a machine
+without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+Bars: float32 max error < 1e-3·max(1, max|ref|) (CUDA-core float32 sums
+in another order); bfloat16 < 2e-2·max(1, max|ref|) (h and the output are
+rounded to bfloat16, and a rounding may land on the other side of a tie).
+"""
+
+import pytest
+import torch
+
+from deadtrees_tpu_torch.ops import fused_mbconv as fm
+
+pytestmark = pytest.mark.cuda
+
+BAR = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, see the module docstring)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _folded(cin, cout, ksize, conv_skip, gen, device):
+    def n(*shape, s=0.2):
+        return (torch.randn(shape, generator=gen) * s).to(device)
+
+    return fm.FoldedBlockParams(
+        w1=n(cin, cin, s=cin ** -0.5), b1=n(cin, s=0.1),
+        dw=n(ksize, ksize, cin), b_dw=n(cin, s=0.1),
+        cse_w1=n(cin, 8), cse_b1=n(8, s=0.1), cse_w2=n(8, cin), cse_b2=n(cin, s=0.1),
+        sse_w=n(cin, 1, s=cin ** -0.5), sse_b=n(1, s=0.1),
+        w2=n(cin, cout, s=cin ** -0.5), b2=n(cout, s=0.1),
+        wsk=n(cin, cout, s=cin ** -0.5) if conv_skip else None,
+        bsk=n(cout, s=0.1) if conv_skip else None,
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "cin,cout,hh,ww,ksize,act,skip",
+    [
+        (48, 32, 40, 72, 3, "hswish", "auto"),  # ragged, projected skip
+        (32, 32, 33, 17, 3, "hswish", "auto"),  # ragged, identity skip
+        (128, 40, 45, 70, 5, "silu", "none"),  # 64 mid channels a block
+        (24, 40, 45, 70, 5, "hswish", "conv"),  # 32 mid channels a block
+        (64, 64, 16, 16, 3, "silu", "identity"),
+        (688, 256, 32, 32, 3, "hswish", "conv"),  # the flagship's widest cell
+    ],
+)
+def test_kernel_matches_plain(card, dtype, cin, cout, hh, ww, ksize, act, skip):
+    gen = torch.Generator().manual_seed(cin * 1000 + hh)
+    conv = skip == "conv" or (skip == "auto" and cin != cout)
+    fp = _folded(cin, cout, ksize, conv, gen, card)
+    x = torch.randn((2, cin, hh, ww), generator=gen).to(card, dtype)
+    ref = fm.fused_inverted_residual_chw_reference(
+        x, fp, activation=act, ksize=ksize, skip=skip)
+    fm.reset_launch_counts()
+    got = fm.fused_inverted_residual_chw(x, fp, activation=act, ksize=ksize, skip=skip)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == {"fused_ir_chw_pass1": 1, "fused_ir_chw_pass2": 1}
+    assert got.dtype == dtype and got.shape == (2, cout, hh, ww)
+    err = float((got.float() - ref.float()).abs().max())
+    assert err < BAR[dtype] * max(1.0, float(ref.float().abs().max())), err
+
+
+def test_wrapper_raises_on_what_the_kernel_cannot_take(card):
+    gen = torch.Generator().manual_seed(0)
+    fp = _folded(16, 16, 3, False, gen, card)
+    x = torch.randn((1, 16, 8, 8), generator=gen).to(card)
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.fused_inverted_residual_chw(x.transpose(2, 3), fp)
+    cpu_fp = fm.FoldedBlockParams(*(None if t is None else t.cpu() for t in fp))
+    with pytest.raises(ValueError, match="folded"):
+        fm.fused_inverted_residual_chw(x, cpu_fp)
