@@ -22,6 +22,17 @@ Phases (each raises on failure, so the script exits non-zero):
    the flagship shapes beside its bound and its plain version.
 6. Profile: device time by kernel group and the device's idle share for
    both engines at bs 4 and 32 (torch.profiler).
+7. The augment kernel (fused colour jitter + normalize) against its plain
+   version at the flagship training batch (16, 512², RGBN), at bs 1 on
+   256² and 1024², a ragged 40×72 tile and RGB; its time beside its bound;
+   the exact EDT on the card against scipy on 512² masks.
+8. Training (the second main path, whose augment launches are counted):
+   ``Trainer.fit()`` of the b5 flagship at bs 16, 512², bf16 over tar
+   shards written with the port's ``ShardWriter``, 2 epochs with the
+   MultiStage freeze in the first; the best checkpoint served by
+   ``TorchInference``; 8 steps on one repeated batch lower the loss; a NaN
+   batch leaves the state alone; step time, memory, EDT time and a
+   torch.profiler breakdown of one train step.
 
 The last line is the device record; the line before it the card's name
 and power limit, and before that one JSON object describing the kernels.
@@ -30,6 +41,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import re
@@ -59,6 +71,14 @@ REPLACES = {
     "fused_ir_chw_pass1": "deadtrees_tpu/ops/fused_mbconv.py:156",
     "fused_ir_chw_pass2": "deadtrees_tpu/ops/fused_mbconv.py:217",
 }
+AUGMENT = "augment_jitter_normalize"
+AUGMENT_SOURCE = "deadtrees_tpu_torch/ops/csrc/augment.cu"
+AUGMENT_REPLACES = "deadtrees_tpu/ops/augment_pallas.py:32"
+AUGMENT_BAR = 1e-6  # and no element off by a grey step: bit-equality expected
+EDT_BAR = 1e-4
+TRAIN_BS = 16
+TRAIN_STEPS = 4  # limit_train_batches per epoch
+VAL_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -124,9 +144,9 @@ def phase_device():
     for name in _build.SOURCES:
         entry, spills = "?", ""
         for line in _build.ptxas_log(name).splitlines():
-            m = re.search(r"(pass\d)_kernelI(\w*?)EEv", line)
+            m = re.search(r"(pass\d_kernel|augment_[a-z]+_kernel)(I\w*?E)?E", line)
             if m:
-                entry = f"{m.group(1)}<{m.group(2)}>"
+                entry = f"{m.group(1)}<{(m.group(2) or '')[1:-1]}>"
             elif "spill" in line:
                 spills = line.strip()
             elif "Used" in line:
@@ -313,7 +333,7 @@ def phase_slice(path: Path, hp):
         log(f"  bf16 bs {bs:>2}: fused vs plain class-map agreement {agree:.5f} "
             f"(bar {AGREE_BF16}); launches {counts}; classes "
             f"{np.bincount(a.ravel(), minlength=3).tolist()}")
-        assert counts == {k: 22 for k in LAUNCHES}, counts
+        assert all(counts[k] == 22 for k in REPLACES), counts
         assert agree >= AGREE_BF16, agree
     big = rng.integers(0, 256, (64, IMG, IMG, 4), dtype=np.uint8)
     reset_launch_counts()
@@ -343,7 +363,7 @@ def phase_slice(path: Path, hp):
             log(f"  f32 bs {bs:>2}: fused_forward vs model logits max err "
                 f"{err:.3e} (bar {bar:.3e}, max|ref| {float(ref.abs().max()):.3f}); "
                 f"launches {counts}")
-            assert counts == {k: 22 for k in LAUNCHES}, counts
+            assert all(counts[k] == 22 for k in REPLACES), counts
             assert err <= bar, err
             del x, got, ref
     del model32, folded32
@@ -575,6 +595,370 @@ def phase_profile(fused, plain, card: str) -> None:
             log(f"  {label} bs {bs:>2}: wall {wall * 1e3:.3f} ms, device busy "
                 f"{busy:.3f} ms, idle {1 - busy / (wall * 1e3):.1%}; ms by group: {parts}")
 
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+
+def augment_bound_ms(shape) -> tuple:
+    """(bound ms, bytes ms, ops ms) of one jitter + normalize call: the
+    uint8 batch and α, β read once, the float32 NCHW batch written once;
+    8 float operations an element (two products, a sum, clip, floor,
+    subtract, divide) and one add an element for the image mean."""
+    bsz, hh, ww, c = shape
+    n = bsz * hh * ww * c
+    nbytes = n + 8 * bsz + 4 * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 9 * n / F32_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+def phase_augment(card: str) -> dict:
+    """Kernel 4 against its plain version on the card; the exact EDT
+    against scipy. Returns the kernel's row of the kernels line (without
+    its launch count)."""
+    import torch
+
+    from deadtrees_tpu_torch.data import DATASET_CONFIG
+    from deadtrees_tpu_torch.ops import augment as aug
+
+    mean, std = DATASET_CONFIG.mean, DATASET_CONFIG.std
+    gen = torch.Generator().manual_seed(SEED + 7)
+    log(f"augment kernel vs plain (bar: max abs err <= {AUGMENT_BAR:g} and no grey-step "
+        "flip; bit-equality expected)")
+    worst = 0.0
+    for shape in ((TRAIN_BS, IMG, IMG, 4), (1, 256, 256, 4), (1, 1024, 1024, 4),
+                  (2, 40, 72, 4), (3, IMG, IMG, 3)):
+        img = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).cuda()
+        img[:, : shape[1] // 8] = 255  # saturated rows: the clip bites at both ends
+        img[:, -(shape[1] // 8):] = 0
+        alpha = 0.85 + 0.3 * torch.rand(shape[0], generator=gen)
+        beta = 0.4 * torch.rand(shape[0], generator=gen) - 0.2
+        alpha[0], beta[0] = 1.15, 0.2
+        alpha, beta = alpha.cuda(), beta.cuda()
+        ref = aug.augment_jitter_normalize_reference(img, alpha, beta, mean, std)
+        got = aug.augment_jitter_normalize(img, alpha, beta, mean, std)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        differ = int((got != ref).sum())
+        step = 1.0 / (255.0 * max(std))
+        flips = int(((got - ref).abs() > 0.5 * step).sum())
+        jit = aug.color_jitter_u8(img, alpha, beta)
+        clipped = (float((jit == 255).float().mean()), float((jit == 0).float().mean()))
+        log(f"  {str(shape):<22} max abs err {err:.3e}, elements that differ {differ}, "
+            f"grey-step flips {flips}; share clipped at 255 / 0: {clipped[0]:.3f} / "
+            f"{clipped[1]:.3f}")
+        if err > AUGMENT_BAR or flips:
+            raise AssertionError(f"augment kernel disagrees with its plain version at {shape}")
+        worst = max(worst, err)
+
+    shape = (TRAIN_BS, IMG, IMG, 4)
+    img = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).cuda()
+    alpha = (0.85 + 0.3 * torch.rand(TRAIN_BS, generator=gen)).cuda()
+    beta = (0.4 * torch.rand(TRAIN_BS, generator=gen) - 0.2).cuda()
+    ms = cuda_time_ms(lambda: aug.augment_jitter_normalize(img, alpha, beta, mean, std))
+    plain_ms = cuda_time_ms(
+        lambda: aug.augment_jitter_normalize_reference(img, alpha, beta, mean, std))
+    mean_ms = cuda_time_ms(lambda: aug.image_mean(img))
+    img_mean = aug.image_mean(img)
+    chan = torch.cat(aug.channel_constants(mean, std, 4, img.device)).contiguous()
+    kernel_ms = cuda_time_ms(lambda: aug.launch(img, alpha, beta, img_mean, chan))
+    bound, bytes_ms, ops_ms = augment_bound_ms(shape)
+    log(f"augment at {shape} (CUDA events, median of 21) on {card}: wrapper {ms:.4f} ms "
+        f"(the kernel's launch alone {kernel_ms:.4f} ms, the exact image-mean reduction "
+        f"alone {mean_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"(bytes {bytes_ms:.4f}, ops {ops_ms:.4f})")
+
+    phase_edt()
+    return {"name": AUGMENT, "route": "cuda", "source": AUGMENT_SOURCE,
+            "replaces": AUGMENT_REPLACES, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
+def phase_edt() -> None:
+    """The exact EDT on the card against scipy on 512² masks."""
+    import scipy.ndimage
+    import torch
+
+    from deadtrees_tpu_torch.losses import edt
+
+    rng = np.random.default_rng(SEED + 8)
+    masks = {"all False": np.zeros((IMG, IMG), bool), "all True": np.ones((IMG, IMG), bool),
+             "one pixel": np.zeros((IMG, IMG), bool), "sparse": rng.random((IMG, IMG)) > 0.999,
+             "blobs": np.zeros((IMG, IMG), bool)}
+    masks["one pixel"][IMG * 3 // 5, 17] = True
+    for y, x, h, w in rng.integers(0, IMG // 2, (12, 4)):
+        masks["blobs"][y:y + h % 64 + 8, x:x + w % 64 + 8] = True
+    got = edt(torch.from_numpy(np.stack(list(masks.values()))).cuda()).cpu().numpy()
+    parts = []
+    for (name, m), g in zip(masks.items(), got):
+        # scipy measures the distance to the nearest zero of its input;
+        # with no True pixel the port's documented value is sqrt(1e12)
+        want = (np.full(m.shape, 1e6) if not m.any()
+                else scipy.ndimage.distance_transform_edt(~m))
+        err = float(np.abs(g - want).max())
+        parts.append(f"{name} {err:.2e}")
+        if err > EDT_BAR * max(1.0, float(np.abs(want).max()) if not m.any() else 1.0):
+            raise AssertionError(f"EDT on the card disagrees with scipy: {name} {err}")
+    log(f"EDT on the card vs scipy, 512² masks, max abs err (bar {EDT_BAR:g}): "
+        + "; ".join(parts))
+
+
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+
+def write_train_shards(root: Path) -> None:
+    """Two train shards of 32 and a val shard of 32 samples: 512² RGBN
+    TIFF tiles, masks of random rectangles of classes 1 and 2, lu layers."""
+    from PIL import Image
+
+    from deadtrees_tpu_torch.data.shardwriter import ShardWriter
+
+    def tiff(arr, mode):
+        buf = io.BytesIO()
+        Image.fromarray(arr, mode=mode).save(buf, format="TIFF")
+        return buf.getvalue()
+
+    rng = np.random.default_rng(SEED + 9)
+    for split, n in (("train", 64), ("val", 32)):
+        with ShardWriter(str(root / split / "train-combo-%06d.tar"), maxcount=32) as w:
+            for i in range(n):
+                mask = np.zeros((IMG, IMG), np.uint8)
+                for cls in (1, 2):
+                    for y, x, h, ww in rng.integers(0, IMG * 3 // 4, (3, 4)):
+                        side = IMG // 5
+                        mask[y:y + h % side + IMG // 32, x:x + ww % side + IMG // 32] = cls
+                img = rng.integers(0, 256, (IMG, IMG, 4), dtype=np.uint8)
+                w.write({"__key__": f"{split}_{i:04d}", "rgbn.tif": tiff(img, "RGBA"),
+                         "mask.tif": tiff(mask, "L"),
+                         "lu.tif": tiff((rng.random((IMG, IMG)) > 0.3).astype(np.uint8), "L"),
+                         "txt": f"{float((mask > 0).mean() * 100):.2f}"})
+    (root / "test").mkdir(exist_ok=True)
+
+
+def train_config(data_dir: Path) -> dict:
+    """The flagship recipe (configs/experiment/flagship_b5_multistage.yaml,
+    bs 16 from the datamodule config) cut to 2 epochs of 4 train and 2 val
+    batches, the encoder frozen in the first (MultiStage unfreeze_epoch 1)."""
+    return {
+        "data_dir": str(data_dir), "seed": SEED,
+        "datamodule": {"pattern": "train-combo-*.tar", "batch_size": TRAIN_BS},
+        "model": {
+            "network": {"architecture": "efficientunet++",
+                        "encoder_name": "timm-efficientnet-b5",
+                        "decoder_channels": [256, 128, 64, 32, 16],
+                        "classes": ["background", "conifers", "deciduous"],
+                        "in_channels": 4, "losses": ["GDICE", "FOCAL", "BOUNDARY"]},
+            "training": {"learning_rate": 3e-4, "cosineannealing_tmax": 10},
+        },
+        "trainer": {"max_epochs": 2, "min_epochs": 1, "precision": "bf16",
+                    "gradient_clip_val": 0.5, "limit_train_batches": TRAIN_STEPS,
+                    "limit_val_batches": VAL_STEPS, "remat": False},
+        "callbacks": {
+            "multistage": {"unfreeze_epoch": 1, "lr_reduce_epoch": None},
+            "model_checkpoint": {"monitor": "val/dice", "mode": "max",
+                                 "dirpath": "checkpoints/"},
+            "early_stopping": {"monitor": "val/dice", "patience": 200},
+        },
+        "logger": {"kind": "csv", "save_dir": "metrics"},
+    }
+
+
+def _train_group(event, launched_in) -> str:
+    name = event.get("name", "")
+    low = name.lower()
+    if event.get("cat") != "kernel":
+        return "copies"
+    if "augment_" in name:
+        return "augment kernel"
+    if launched_in == "edt":
+        return "EDT"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "optimizer"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "cutlass", "winograd", "sm90")):
+        return "conv/GEMM library"
+    return "elementwise, reductions"
+
+
+def profile_train_step(trainer, host_batch, card: str) -> None:
+    """torch.profiler over one training batch as the data module feeds it
+    (upload, augment, EDT) and one train step; device time by group and
+    the device's idle share. Kernels are told apart by name, and the EDT's
+    by the host range they were launched in."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from deadtrees_tpu_torch.data.augment import augment_batch
+    from deadtrees_tpu_torch.losses import batch_one_hot2dist, class2one_hot
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+
+    def one_batch():
+        with record_function("augment"):
+            dev = {k: host_batch[k].cuda(non_blocking=True) for k in ("image", "mask")}
+            out = augment_batch(gen, dev["image"], dev["mask"])
+        with record_function("edt"):
+            out["distmap"] = batch_one_hot2dist(class2one_hot(out["mask"], 3))
+        with record_function("train_step"):
+            trainer.train_step(trainer.state, out, 1)
+
+    one_batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_batch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    path = REPO / "build" / "chip_smoke" / "trace_train_step.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+
+    def launched_in(kernel):
+        rt = launch.get(kernel.get("args", {}).get("correlation"))
+        if rt is None:
+            return None
+        for r in ranges:
+            if r["tid"] == rt["tid"] and r["ts"] <= rt["ts"] <= r["ts"] + r["dur"]:
+                return r["name"]
+        return None
+
+    groups = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            g = _train_group(e, launched_in(e))
+            groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3
+    if not groups:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    busy = sum(groups.values())
+    parts = "; ".join(f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
+    log(f"train step profile (bs {TRAIN_BS}, {IMG}², bf16; upload + augment + EDT + one step) "
+        f"on {card}: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
+        f"{1 - busy / wall:.1%}; ms by group: {parts}")
+
+
+def phase_train(card: str) -> int:
+    """Fit the flagship, then the checks and timings of the training path.
+    Returns the augment kernel's launches during the fit."""
+    import csv
+
+    import torch
+
+    from deadtrees_tpu_torch.infer import TorchInference
+    from deadtrees_tpu_torch.losses import batch_one_hot2dist, class2one_hot
+    from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from deadtrees_tpu_torch.train import Trainer
+    from deadtrees_tpu_torch.train.steps import bn_buffers
+
+    root = REPO / "build" / "chip_smoke" / "train"
+    t0 = time.perf_counter()
+    write_train_shards(root / "data")
+    log(f"train shards: 2 x 32 train + 32 val samples of {IMG}² RGBN TIFF written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg = train_config(root / "data")
+    trainer = Trainer(cfg, work_dir=root / "run")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    fit_s = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps = trainer.state.step
+    with open(root / "run" / "metrics" / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    log(f"fit: {len(rows)} epochs, {steps} train steps + {VAL_STEPS} val batches an epoch in "
+        f"{fit_s:.2f} s (build and first-step warm-up included); launches {counts}; peak "
+        f"memory {peak / 2**30:.2f} GiB; remat {cfg['trainer']['remat']}")
+    for r in rows:
+        log(f"  epoch {int(float(r['epoch']))}: train loss {float(r['train/total_loss']):.4f} "
+            f"(dice {float(r['train/dice_loss']):.4f}, focal {float(r['train/focal_loss']):.4f}, "
+            f"boundary {float(r['train/boundary_loss']):.4f}), grad norm "
+            f"{float(r['train/grad_norm']):.4f}, val loss {float(r['val/total_loss']):.4f}, "
+            f"val dice {float(r['val/dice']):.4f}, {float(r['steps_per_sec']):.3f} steps/s")
+        losses = [float(r[k]) for k in r if k.endswith("_loss")]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite losses in epoch {r['epoch']}: {r}")
+    if steps != 2 * TRAIN_STEPS or counts[AUGMENT] != steps:
+        raise AssertionError(f"augment launches {counts[AUGMENT]} for {steps} train batches")
+    if any(counts[k] for k in REPLACES):
+        raise AssertionError(f"the train path launched the fused decoder: {counts}")
+
+    engine = TorchInference(result["best_ckpt"], fused_decoder="auto")
+    tile = np.random.default_rng(SEED).integers(0, 256, (1, IMG, IMG, 4), dtype=np.uint8)
+    classes = engine.run(tile)
+    if classes.shape != (1, IMG, IMG) or classes.dtype != np.uint8 or classes.max() > 2:
+        raise AssertionError(f"best checkpoint served {classes.shape} {classes.dtype}")
+    log(f"best checkpoint {Path(result['best_ckpt']).name} served by TorchInference: "
+        f"classes {np.bincount(classes.ravel(), minlength=3).tolist()}")
+    del engine
+
+    dm = trainer.datamodule
+    gen = torch.Generator().manual_seed(SEED + 11)
+    with contextlib.closing(dm.train_batches(gen)) as batches:
+        batch = next(batches)
+    batch.pop("files")
+    batch.pop("lu", None)
+    losses, times = [], []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = trainer.train_step(trainer.state, batch, 1)
+        losses.append(float(m["total_loss"]))
+        times.append(time.perf_counter() - t0)
+    log(f"8 steps on one repeated batch: total loss {' '.join(f'{v:.4f}' for v in losses)}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall on a repeated batch: {losses}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    log(f"train step (host clock, synchronized, median of steps 2-8) on {card}: "
+        f"{step_ms:.3f} ms, {TRAIN_BS * 1e3 / step_ms:.2f} samples/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    mask = batch["mask"]
+    edt_ms = cuda_time_ms(lambda: batch_one_hot2dist(class2one_hot(mask, 3)), reps=5, warmup=1)
+    log(f"distance maps (EDT) for one batch ({TRAIN_BS} x 3 classes x {IMG}²), CUDA events, "
+        f"median of 5: {edt_ms:.3f} ms")
+
+    bad = dict(batch)
+    bad["image"] = batch["image"].clone()
+    bad["image"][0, 0, 0, 0] = float("nan")
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    opt = trainer.state.optimizer
+    moments, count = [t.clone() for t in opt.mu + opt.nu], opt.count
+    n_bn = len(bn_buffers(trainer.model))
+    step0 = trainer.state.step
+    _, m = trainer.train_step(trainer.state, bad, 1)
+    if np.isfinite(float(m["total_loss"])) or trainer.state.step != step0 + 1:
+        raise AssertionError("the NaN batch gave a finite loss or did not tick the step")
+    changed = [k for k, v in trainer.model.state_dict().items() if not torch.equal(v, before[k])]
+    if changed or opt.count != count or not all(
+            torch.equal(a, b) for a, b in zip(opt.mu + opt.nu, moments)):
+        raise AssertionError(f"a NaN batch changed the state: {changed[:5]}")
+    log(f"NaN batch: loss {float(m['total_loss'])}; parameters, {n_bn} BN buffers and the "
+        "Adam state unchanged, step ticked")
+
+    profile_train_step(trainer, _one_host_batch(dm), card)
+    return counts[AUGMENT]
+
+
+def _one_host_batch(dm) -> dict:
+    """One pinned uint8 host batch as the data module's producer makes it."""
+    from deadtrees_tpu_torch.data.pipeline import _BatchProducer
+    from deadtrees_tpu_torch.data.tar import make_sample_stream
+
+    producer = _BatchProducer(make_sample_stream(dm.train_shards), dm.cfg.batch_size,
+                              dm.cfg, pin=True)
+    try:
+        return next(iter(producer))
+    finally:
+        producer.stop()
+
 
 def main() -> int:
     import torch
@@ -604,6 +988,10 @@ def main() -> int:
     counts = phase_server(ckpt)
     tot = phase_timings(model, fused, plain, card)
     phase_profile(fused, plain, card)
+    del fused, plain, model
+    torch.cuda.empty_cache()
+    augment_row = phase_augment(card)
+    augment_row["launches"] = phase_train(card)
 
     kernels = []
     for name in REPLACES:
@@ -616,6 +1004,9 @@ def main() -> int:
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
             "library_ms": None,
         })
+    kernels.append({k: augment_row[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms")})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -5,12 +5,14 @@ from deadtrees_tpu_torch.core.artifacts import (
     write_pointer,
 )
 from deadtrees_tpu_torch.core.checkpoint import (
+    BestCheckpointKeeper,
     load_checkpoint,
     load_model,
     save_checkpoint,
 )
 
 __all__ = [
+    "BestCheckpointKeeper",
     "load_checkpoint",
     "load_model",
     "maybe_verify",

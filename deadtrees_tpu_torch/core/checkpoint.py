@@ -12,20 +12,25 @@ and the reverse (first-party codec: ``core/msgpack_codec.py``).
 - a ``.dtpu`` pointer is written next to every checkpoint and verified on
   load when present, so a corrupted file fails loudly;
 - ``opt_state`` (the flax bytes of an optax state) is read and written as
-  opaque bytes.
+  opaque bytes;
+- :class:`BestCheckpointKeeper` keeps the best checkpoint on a monitored
+  metric and always the last one (a copy of the JAX package's keeper).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from deadtrees_tpu_torch.core.artifacts import maybe_verify, write_pointer
+from deadtrees_tpu_torch.core.artifacts import maybe_verify, pointer_path, write_pointer
 from deadtrees_tpu_torch.core.msgpack_codec import packb, unpackb
+
+log = logging.getLogger(__name__)
 
 _MAGIC = b"DTPU1\n"
 
@@ -104,3 +109,59 @@ def load_model(
         state_dict_from_variables(variables, encoder_name=model.encoder_name)
     )
     return model.to(device).eval(), variables, hp
+
+
+class BestCheckpointKeeper:
+    """Monitor-metric retention: top-1 best + always-last
+    (``ModelCheckpoint(monitor='val/dice', mode='max', save_top_k=1,
+    save_last=True)``)."""
+
+    def __init__(
+        self,
+        directory: Union[str, Path],
+        *,
+        monitor: str = "val/dice",
+        mode: str = "max",
+        filename: str = "epoch_{epoch:03d}.ckpt",
+    ):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode={mode!r}; expected 'max' or 'min'")
+        self.directory = Path(directory)
+        self.monitor = monitor
+        self.mode = mode
+        self.filename = filename
+        self.best_value: Optional[float] = None
+        self.best_path: Optional[Path] = None
+
+    def is_improvement(self, value: float) -> bool:
+        if self.best_value is None:
+            return True
+        return value > self.best_value if self.mode == "max" else value < self.best_value
+
+    def update(
+        self, value: float, epoch: int, save_fn, save_many_fn=None, delete_fn=None,
+    ) -> Optional[Path]:
+        """``save_fn(path)`` writes the checkpoint; returns the new best
+        path, if any. ``save_many_fn(paths)``, when given, writes one
+        snapshot to several paths; ``delete_fn(path)`` removes the
+        superseded best (default: unlink it and its pointer)."""
+        last = self.directory / "last.ckpt"
+        if self.is_improvement(value):
+            new_best = self.directory / self.filename.format(epoch=epoch)
+            if save_many_fn is not None:
+                save_many_fn([last, new_best])
+            else:
+                save_fn(last)
+                save_fn(new_best)
+            if self.best_path is not None and self.best_path != new_best:
+                if delete_fn is not None:
+                    delete_fn(self.best_path)
+                elif self.best_path.exists():
+                    self.best_path.unlink()
+                    pointer_path(self.best_path).unlink(missing_ok=True)
+            self.best_path = new_best
+            self.best_value = value
+            log.info(f"New best {self.monitor}={value:.4f} at {new_best}")
+            return new_best
+        save_fn(last)
+        return None

@@ -8,6 +8,9 @@ reference checkpoints (``block.0`` expand, ``block.3`` depthwise,
 
 Only the default (single-tensor) InvertedResidual path is ported: the JAX
 package's env-gated layout experiments compute the same numbers.
+
+Every BatchNorm of the port is :class:`BatchNorm2d`, which trains with
+flax's semantics (biased running variance).
 """
 
 from __future__ import annotations
@@ -15,6 +18,28 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax ``nn.BatchNorm`` train-mode semantics.
+
+    In train mode it normalizes with the biased batch variance (as torch
+    does) and moves ``running_var`` toward the *biased* variance too, where
+    torch would take the unbiased one; ``momentum`` 0.1 is flax's 0.9.
+    The statistics are taken in float32 whatever the input type, as flax
+    takes them. Eval mode and the ``state_dict()`` keys are torch's own.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean * m)
+            self.running_var.mul_(1.0 - m).add_(var * m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -86,21 +111,21 @@ class InvertedResidual(nn.Module):
         self.kernel_size = kernel_size
         self.block = nn.Sequential(
             nn.Conv2d(in_channels, mid, 1),
-            nn.BatchNorm2d(mid, eps=1e-5),
+            BatchNorm2d(mid, eps=1e-5),
             nn.Hardswish(),
             nn.Conv2d(
                 mid, mid, kernel_size, padding=kernel_size // 2, groups=mid
             ),
-            nn.BatchNorm2d(mid, eps=1e-5),
+            BatchNorm2d(mid, eps=1e-5),
             nn.Hardswish(),
             SCSEModule(mid, squeeze_ratio),
             nn.Conv2d(mid, features, 1),
-            nn.BatchNorm2d(features, eps=1e-5),
+            BatchNorm2d(features, eps=1e-5),
         )
         self.skip_conv = (
             nn.Sequential(
                 nn.Conv2d(in_channels, features, 1),
-                nn.BatchNorm2d(features, eps=1e-5),
+                BatchNorm2d(features, eps=1e-5),
             )
             if in_channels != features
             else None

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deadtrees_tpu_torch.models.blocks import BatchNorm2d
+
 log = logging.getLogger(__name__)
 
 # Base (B0) stage configs: (expand_ratio, channels, num_blocks, stride, kernel)
@@ -146,18 +148,18 @@ class MBConv(nn.Module):
         )
         if expand_ratio != 1:
             self.conv_pw = nn.Conv2d(in_channels, mid, 1, bias=False)
-            self.bn1 = nn.BatchNorm2d(mid, eps=bn_eps)
+            self.bn1 = BatchNorm2d(mid, eps=bn_eps)
             self.conv_dw = dw
-            self.bn2 = nn.BatchNorm2d(mid, eps=bn_eps)
+            self.bn2 = BatchNorm2d(mid, eps=bn_eps)
             self.se = _SqueezeExcite(mid, se_ch)
             self.conv_pwl = nn.Conv2d(mid, features, 1, bias=False)
-            self.bn3 = nn.BatchNorm2d(features, eps=bn_eps)
+            self.bn3 = BatchNorm2d(features, eps=bn_eps)
         else:
             self.conv_dw = dw
-            self.bn1 = nn.BatchNorm2d(mid, eps=bn_eps)
+            self.bn1 = BatchNorm2d(mid, eps=bn_eps)
             self.se = _SqueezeExcite(mid, se_ch)
             self.conv_pw = nn.Conv2d(mid, features, 1, bias=False)
-            self.bn2 = nn.BatchNorm2d(features, eps=bn_eps)
+            self.bn2 = BatchNorm2d(features, eps=bn_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.expand_ratio != 1:
@@ -190,7 +192,7 @@ class EfficientNetEncoder(nn.Module):
             raise ValueError(f"pad_type={pad_type!r}; expected one of {_PAD_TYPES}")
         stem = _round_channels(32, width_mult)
         self.conv_stem = _ConvNoBias(in_channels, stem, 3, 2, pad_type=pad_type)
-        self.bn1 = nn.BatchNorm2d(stem, eps=bn_eps)
+        self.bn1 = BatchNorm2d(stem, eps=bn_eps)
         stages = []
         cin = stem
         for t, c, n, s, k in _EFFNET_BASE:

@@ -99,6 +99,16 @@ class SegmentationModel(nn.Module):
             enabled=self.dtype != torch.float32,
         )
 
+    def train(self, mode: bool = True, encoder_train: bool = True) -> "SegmentationModel":
+        """``encoder_train=False`` keeps the encoder's BatchNorms on their
+        running statistics while the rest trains: the multistage freeze
+        stage (the JAX model's ``encoder_train`` switch, the reference's
+        ``encoder.eval()``)."""
+        super().train(mode)
+        if mode and not encoder_train:
+            self.encoder.eval()
+        return self
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with self.autocast(x.device.type):
             features = self.encoder(x)

@@ -1,3 +1,7 @@
+from deadtrees_tpu_torch.ops.augment import (
+    augment_jitter_normalize,
+    augment_jitter_normalize_reference,
+)
 from deadtrees_tpu_torch.ops.fused_decoder import (
     apply_head,
     encode_features,
@@ -7,19 +11,20 @@ from deadtrees_tpu_torch.ops.fused_decoder import (
     fused_forward,
 )
 from deadtrees_tpu_torch.ops.fused_mbconv import (
-    LAUNCHES,
     FoldedBlockParams,
     fold_bn_into_conv,
     fold_inverted_residual,
     fused_inverted_residual_chw,
     fused_inverted_residual_chw_reference,
-    reset_launch_counts,
 )
+from deadtrees_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts
 
 __all__ = [
     "LAUNCHES",
     "FoldedBlockParams",
     "apply_head",
+    "augment_jitter_normalize",
+    "augment_jitter_normalize_reference",
     "encode_features",
     "fold_bn_into_conv",
     "fold_effunetpp_decoder",

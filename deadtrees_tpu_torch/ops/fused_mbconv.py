@@ -32,18 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from deadtrees_tpu_torch.models.blocks import InvertedResidual
+from deadtrees_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts  # noqa: F401
 
 ACTIVATIONS = ("hswish", "silu")
 SKIPS = ("auto", "identity", "conv", "none")
-
-# Launches of each kernel since the last reset_launch_counts(); only the
-# wrapper's launch sites add to them.
-LAUNCHES = {"fused_ir_chw_pass1": 0, "fused_ir_chw_pass2": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 class FoldedBlockParams(NamedTuple):

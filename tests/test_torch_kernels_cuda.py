@@ -9,12 +9,15 @@ without them:
 Bars: float32 max error < 1e-3·max(1, max|ref|) (CUDA-core float32 sums
 in another order); bfloat16 < 2e-2·max(1, max|ref|) (h and the output are
 rounded to bfloat16, and a rounding may land on the other side of a tie).
+The augment kernel rounds as its plain version does: bit-equal.
 """
 
 import pytest
 import torch
 
+from deadtrees_tpu_torch.ops import augment as aug
 from deadtrees_tpu_torch.ops import fused_mbconv as fm
+from deadtrees_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -64,10 +67,10 @@ def test_kernel_matches_plain(card, dtype, cin, cout, hh, ww, ksize, act, skip):
     x = torch.randn((2, cin, hh, ww), generator=gen).to(card, dtype)
     ref = fm.fused_inverted_residual_chw_reference(
         x, fp, activation=act, ksize=ksize, skip=skip)
-    fm.reset_launch_counts()
+    reset_launch_counts()
     got = fm.fused_inverted_residual_chw(x, fp, activation=act, ksize=ksize, skip=skip)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES == {"fused_ir_chw_pass1": 1, "fused_ir_chw_pass2": 1}
+    assert LAUNCHES["fused_ir_chw_pass1"] == 1 and LAUNCHES["fused_ir_chw_pass2"] == 1
     assert got.dtype == dtype and got.shape == (2, cout, hh, ww)
     err = float((got.float() - ref.float()).abs().max())
     assert err < BAR[dtype] * max(1.0, float(ref.float().abs().max())), err
@@ -82,3 +85,26 @@ def test_wrapper_raises_on_what_the_kernel_cannot_take(card):
     cpu_fp = fm.FoldedBlockParams(*(None if t is None else t.cpu() for t in fp))
     with pytest.raises(ValueError, match="folded"):
         fm.fused_inverted_residual_chw(x, cpu_fp)
+
+
+MEAN = (0.3661029729, 0.3875165941, 0.3501133538, 0.5797285859)
+STD = (0.2388708549, 0.2103625723, 0.2050272174, 0.2025812523)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [(16, 512, 512, 4), (1, 256, 256, 4), (2, 40, 72, 4), (3, 64, 48, 3), (2, 33, 17, 4)],
+    ids=["flagship", "256", "ragged", "rgb", "odd"],
+)
+def test_augment_kernel_matches_plain(card, shape):
+    gen = torch.Generator().manual_seed(shape[1])
+    img = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(card)
+    alpha = (0.85 + 0.3 * torch.rand(shape[0], generator=gen)).to(card)
+    beta = (0.4 * torch.rand(shape[0], generator=gen) - 0.2).to(card)
+    ref = aug.augment_jitter_normalize_reference(img, alpha, beta, MEAN, STD)
+    reset_launch_counts()
+    got = aug.augment_jitter_normalize(img, alpha, beta, MEAN, STD)
+    torch.cuda.synchronize()
+    assert LAUNCHES["augment_jitter_normalize"] == 1
+    assert got.shape == ref.shape == (shape[0], shape[3], shape[1], shape[2])
+    assert torch.equal(got, ref), float((got - ref).abs().max())
