@@ -33,6 +33,26 @@ Phases (each raises on failure, so the script exits non-zero):
    ``TorchInference``; 8 steps on one repeated batch lower the loss; a NaN
    batch leaves the state alone; step time, memory, EDT time and a
    torch.profiler breakdown of one train step.
+9. NHWC kernels vs plain (run after phase 6): the NHWC pair as
+   ``fused_ir_fat`` at the 14 fat decoder blocks of the flagship at 512²
+   (bs 4, float32 and bfloat16), at the fat blocks of 256² and 1024²
+   (bs 1, bfloat16), on a ragged 40×72 tile and in silu / k5 / identity /
+   none modes; as ``fused_inverted_residual`` (h in float32) at the 14
+   shapes; ``depthwise_conv2d(force="cuda")`` at k 3 and 5, float32 and
+   bfloat16, stride 1 and 2, ragged.
+10. The rest of single-model serving (the third main path, whose NHWC
+   launches are counted): ``TorchInference(fused_decoder="nhwc")`` at bs
+   1, 4, 32 and 128 against the plain engine, 14 launches of each NHWC
+   pass a forward; float32 ``fused_forward(layout="nhwc")`` against the
+   model's logits; the w8 and w8a8 engines at bs 4 and 32 against the
+   unquantized engine (no fat-cell launch under w8a8); ``tta=8`` at bs 4
+   equivariant under rot90 and flips.
+11. NHWC timings: latency of the nhwc, chw and plain routes at bs 1, 4,
+   32 and 128; the NHWC pair and kernel 3 per launch at the 14 fat shapes
+   (bf16, bs 4) and the depthwise kernel at the b5 encoder's stride-1
+   depthwise shapes (bs 16, 512², bf16) beside their bounds, plain
+   versions and, for the depthwise kernel, ``F.conv2d(groups=C)``; device
+   time by group and idle share of the nhwc route at bs 32 and 128.
 
 The last line is the device record; the line before it the card's name
 and power limit, and before that one JSON object describing the kernels.
@@ -75,6 +95,21 @@ AUGMENT = "augment_jitter_normalize"
 AUGMENT_SOURCE = "deadtrees_tpu_torch/ops/csrc/augment.cu"
 AUGMENT_REPLACES = "deadtrees_tpu/ops/augment_pallas.py:32"
 AUGMENT_BAR = 1e-6  # and no element off by a grey step: bit-equality expected
+NHWC_SOURCE = "deadtrees_tpu_torch/ops/csrc/fused_ir_nhwc.cu"
+NHWC_REPLACES = {
+    "fused_ir_fat_pass1": "deadtrees_tpu/ops/fused_cell.py:67",
+    "fused_ir_fat_pass2": "deadtrees_tpu/ops/fused_cell.py:119",
+    "fused_inverted_residual_pass1": "deadtrees_tpu/ops/fused_mbconv.py:368",
+    "fused_inverted_residual_pass2": "deadtrees_tpu/ops/fused_mbconv.py:426",
+}
+FAT = ("fused_ir_fat_pass1", "fused_ir_fat_pass2")
+K3 = ("fused_inverted_residual_pass1", "fused_inverted_residual_pass2")
+DW = "depthwise_conv2d"
+DW_SOURCE = "deadtrees_tpu_torch/ops/csrc/depthwise.cu"
+DW_REPLACES = "deadtrees_tpu/ops/depthwise.py:34"
+FAT_BLOCKS = 14  # decoder blocks the NHWC route sends to the fat-cell kernels at 512²
+AGREE_QUANT = 0.95  # tests/test_quantize.py:87, tests/test_act_quant.py:95
+TTA_MISMATCH = 1e-2  # near-ties of the bf16 logits between two orientations
 EDT_BAR = 1e-4
 TRAIN_BS = 16
 TRAIN_STEPS = 4  # limit_train_batches per epoch
@@ -144,7 +179,9 @@ def phase_device():
     for name in _build.SOURCES:
         entry, spills = "?", ""
         for line in _build.ptxas_log(name).splitlines():
-            m = re.search(r"(pass\d_kernel|augment_[a-z]+_kernel)(I\w*?E)?E", line)
+            m = re.search(
+                r"(pass\d_kernel|nhwc_p\d_kernel|dw_nhwc_kernel|augment_[a-z]+_kernel)"
+                r"(I\w*?E)?E", line)
             if m:
                 entry = f"{m.group(1)}<{(m.group(2) or '')[1:-1]}>"
             elif "spill" in line:
@@ -551,6 +588,12 @@ def _kernel_group(event) -> str:
         return "fused pass 1"
     if "pass2_kernel" in name:
         return "fused pass 2"
+    if "nhwc_p1_kernel" in name:
+        return "NHWC pass 1"
+    if "nhwc_p2_kernel" in name:
+        return "NHWC pass 2"
+    if "dw_nhwc_kernel" in name:
+        return "depthwise kernel"
     low = name.lower()
     if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "cutlass", "winograd")):
         return "conv/GEMM library"
@@ -594,6 +637,436 @@ def phase_profile(fused, plain, card: str) -> None:
                               sorted(groups.items(), key=lambda kv: -kv[1]))
             log(f"  {label} bs {bs:>2}: wall {wall * 1e3:.3f} ms, device busy "
                 f"{busy:.3f} ms, idle {1 - busy / (wall * 1e3):.1%}; ms by group: {parts}")
+
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+
+def fat_block_shapes(model, bsz: int, img: int = IMG):
+    """(cell, index, (B, H, W, C_in), folded params) of the decoder blocks
+    that the NHWC route sends to the fat-cell kernels at ``img``² input
+    (the JAX routing rule, ``fused_decoder.takes_fat_kernel``)."""
+    import torch
+
+    from deadtrees_tpu_torch.ops.fused_decoder import takes_fat_kernel
+
+    out = []
+    for name, i, (b, c, hh, ww), fp in flagship_block_shapes(model, bsz, img):
+        if takes_fat_kernel(torch.empty((b, hh, ww, c), dtype=torch.bfloat16,
+                                        device="meta"), fp):
+            out.append((name, i, (b, hh, ww, c), fp))
+    return out
+
+
+def check_nhwc_case(label, x, fp, errs, *, activation="hswish", ksize=3, skip="auto",
+                    kernel3=False):
+    """The NHWC pair vs plain for pass 1, pass 2 and the whole block, as
+    kernel 2 (h in x's dtype) or, with ``kernel3``, as kernel 3 (h in
+    float32)."""
+    import torch
+
+    from deadtrees_tpu_torch.ops import fused_cell as fc
+    from deadtrees_tpu_torch.ops import fused_mbconv as fm
+
+    dt = "bfloat16" if x.dtype == torch.bfloat16 else "float32"
+    names = K3 if kernel3 else FAT
+    h_dtype = torch.float32 if kernel3 else x.dtype
+    hw = x.shape[1] * x.shape[2]
+    h_ref, s_ref = fc.nhwc_pass1_reference(x, fp, activation=activation, ksize=ksize,
+                                           h_dtype=h_dtype)
+    h_k, psum = fc.nhwc_pass1(x, fp, activation=activation, ksize=ksize, h_dtype=h_dtype,
+                              count=names[0])
+    torch.cuda.synchronize()
+    e_h = max_err(h_k, h_ref)
+    e_s = max_err(psum.sum(1), s_ref.sum(1)) / hw
+    gate = fm.cse_gate(s_ref.sum(1), fp, hw)
+    o_ref = fc.nhwc_pass2_reference(h_ref, x, gate, fp, skip=skip)
+    o_k = fc.nhwc_pass2(h_ref, x, gate, fp, skip=skip, count=names[1])
+    if kernel3:
+        blk_ref = fm.fused_inverted_residual_reference(x, fp)
+        blk = fm.fused_inverted_residual(x, fp)
+    else:
+        blk_ref = fc.fused_ir_fat_reference(x, fp, activation=activation, ksize=ksize,
+                                            skip=skip)
+        blk = fc.fused_ir_fat(x, fp, activation=activation, ksize=ksize, skip=skip)
+    torch.cuda.synchronize()
+    e_o = max_err(o_k, o_ref)
+    e_b = max_err(blk, blk_ref)
+    bars = (rel_bar(h_ref, dt), rel_bar(s_ref / hw, dt), rel_bar(o_ref, dt),
+            rel_bar(blk_ref, dt))
+    ok = all(e <= b for e, b in zip((e_h, e_s, e_o, e_b), bars))
+    log(f"  {label:<34} {dt:<8} {'k3' if kernel3 else 'k2'} pass1 h {e_h:.2e}/{bars[0]:.1e} "
+        f"mean {e_s:.2e}/{bars[1]:.1e}  pass2 {e_o:.2e}/{bars[2]:.1e}  "
+        f"block {e_b:.2e}/{bars[3]:.1e}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"NHWC kernel disagrees with its plain version: {label} {dt}")
+    errs[names[0]] = max(errs[names[0]], e_h)
+    errs[names[1]] = max(errs[names[1]], e_o)
+
+
+def check_dw_case(label, x, kernel, strides, errs):
+    import torch
+
+    from deadtrees_tpu_torch.ops import depthwise as dwm
+
+    dt = "bfloat16" if x.dtype == torch.bfloat16 else "float32"
+    ref = dwm.depthwise_conv2d_reference(x, kernel, strides=strides)
+    got = dwm.depthwise_conv2d(x, kernel, strides=strides, force="cuda")
+    torch.cuda.synchronize()
+    err, bar = max_err(got, ref), rel_bar(ref, dt)
+    ok = got.shape == ref.shape and got.dtype == x.dtype and err <= bar
+    log(f"  {label:<40} {dt:<8} {tuple(got.shape)} max err {err:.2e}/{bar:.1e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"depthwise kernel disagrees with its plain version: {label} {dt}")
+    errs[DW] = max(errs[DW], err)
+
+
+def phase_nhwc_kernels(model, errs):
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    fat = fat_block_shapes(model, 4)
+    log(f"NHWC kernels vs plain at the {len(fat)} fat decoder blocks ({IMG}² input, bs 4): "
+        + ", ".join(f"{n}.conv{i + 1}" for n, i, _, _ in fat))
+    if len(fat) != FAT_BLOCKS:
+        raise AssertionError(f"{len(fat)} fat blocks at {IMG}², expected {FAT_BLOCKS}")
+    for name, i, shape, fp in fat:
+        x32 = torch.randn(shape, generator=gen).cuda()
+        for x in (x32, x32.to(torch.bfloat16)):
+            check_nhwc_case(f"{name}.conv{i + 1} {tuple(shape[1:])}", x, fp, errs)
+            check_nhwc_case(f"{name}.conv{i + 1} {tuple(shape[1:])}", x, fp, errs,
+                            kernel3=True)
+    for img in (256, 1024):
+        fat = fat_block_shapes(model, 1, img)
+        log(f"NHWC kernels vs plain at the {len(fat)} fat decoder blocks ({img}² input, "
+            "bs 1, bf16)")
+        for name, i, shape, fp in fat:
+            x = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
+            check_nhwc_case(f"{name}.conv{i + 1} {tuple(shape[1:])}", x, fp, errs)
+    log("NHWC ragged and generalized modes")
+    cases = [
+        # (label, cin, cout, H, W, ksize, activation, skip)
+        ("ragged 40x72 conv skip", 64, 32, 40, 72, 3, "hswish", "auto"),
+        ("ragged 40x72 identity", 96, 96, 40, 72, 3, "hswish", "auto"),
+        ("k5 silu none", 88, 40, 45, 70, 5, "silu", "none"),  # 32-channel blocks
+        ("k3 silu identity", 64, 64, 45, 70, 3, "silu", "identity"),
+        ("k5 hswish conv", 128, 96, 45, 70, 5, "hswish", "conv"),  # 64-channel blocks
+    ]
+    for label, cin, cout, hh, ww, k, act, skip in cases:
+        conv = skip == "conv" or (skip == "auto" and cin != cout)
+        fp = random_folded(cin, cin, cout, k, conv, gen)
+        x32 = torch.randn((3, hh, ww, cin), generator=gen).cuda()
+        for x in (x32, x32.to(torch.bfloat16)):
+            check_nhwc_case(label, x, fp, errs, activation=act, ksize=k, skip=skip)
+            if (k, act, skip) == (3, "hswish", "auto"):
+                check_nhwc_case(label, x, fp, errs, kernel3=True)
+    log("depthwise kernel vs plain")
+    for shape, k, strides in (((2, 64, 64, 32), 3, 1), ((2, 64, 64, 32), 5, 1),
+                              ((2, 64, 64, 48), 3, 2), ((2, 64, 64, 48), 5, 2),
+                              ((2, 45, 31, 40), 3, 1), ((3, 37, 53, 24), 5, 2)):
+        x32 = torch.randn(shape, generator=gen).cuda()
+        kern = torch.randn((k, k, 1, shape[-1]), generator=gen).cuda()
+        for x in (x32, x32.to(torch.bfloat16)):
+            check_dw_case(f"{shape} k{k} stride {strides}", x, kern, strides, errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+
+def phase_nhwc_slice(path: Path, hp, plain):
+    """The rest of single-model serving; returns (the NHWC route's engine,
+    the launch counts summed over its main-path runs)."""
+    import torch
+
+    from deadtrees_tpu_torch.infer import TorchInference
+    from deadtrees_tpu_torch.infer.tta import apply_view
+    from deadtrees_tpu_torch.models import create_model
+    from deadtrees_tpu_torch.ops import (
+        LAUNCHES,
+        fold_effunetpp_decoder,
+        fused_forward,
+        reset_launch_counts,
+    )
+
+    nhwc = TorchInference(path, fused_decoder="nhwc")
+    rng = np.random.default_rng(SEED + 13)
+    totals = {k: 0 for k in LAUNCHES}
+    for bs in (1, 4, 32, 128):
+        img = rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8)
+        reset_launch_counts()
+        a = nhwc.run(img)
+        counts = dict(LAUNCHES)
+        b = plain.run(img)
+        assert a.shape == (bs, IMG, IMG) and a.dtype == np.uint8, a.shape
+        agree = float((a == b).mean())
+        log(f"  nhwc bf16 bs {bs:>3}: vs plain class-map agreement {agree:.5f} (bar "
+            f"{AGREE_BF16}); launches {counts}; classes "
+            f"{np.bincount(a.ravel(), minlength=3).tolist()}")
+        others = {k: v for k, v in counts.items() if k not in FAT}
+        if any(counts[k] != FAT_BLOCKS for k in FAT) or any(others.values()):
+            raise AssertionError(f"nhwc forward launches {counts}, expected {FAT_BLOCKS} "
+                                 "of each fat-cell pass and nothing else")
+        if agree < AGREE_BF16:
+            raise AssertionError(f"nhwc engine agreement {agree}")
+        for k, v in counts.items():
+            totals[k] += v
+        del img, a, b
+
+    model32 = create_model(**hp, dtype=torch.float32)
+    model32.load_state_dict(nhwc.model.state_dict())
+    model32 = model32.cuda().eval()
+    folded32 = fold_effunetpp_decoder(model32)
+    with torch.no_grad():
+        for bs in (1, 4):
+            img = torch.from_numpy(rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8))
+            x = fused_input(nhwc, img.cuda())
+            reset_launch_counts()
+            got = fused_forward(model32, folded32, x, layout="nhwc")
+            counts = {k: LAUNCHES[k] for k in FAT}
+            ref = model32(x)
+            err = max_err(got, ref)
+            bar = FORWARD_F32_BAR * max(1.0, float(ref.abs().max()))
+            log(f"  f32 bs {bs}: fused_forward(layout='nhwc') vs model logits max err "
+                f"{err:.3e} (bar {bar:.3e}); launches {counts}")
+            if any(v != FAT_BLOCKS for v in counts.values()) or err > bar:
+                raise AssertionError(f"nhwc f32 forward: err {err}, launches {counts}")
+    del model32, folded32
+
+    for quantized in ("w8", "w8a8"):
+        engine = TorchInference(path, quantized=quantized)
+        for bs in (4, 32):
+            img = rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8)
+            reset_launch_counts()
+            a = engine.run(img)
+            counts = dict(LAUNCHES)
+            agree = float((a == plain.run(img)).mean())
+            log(f"  {quantized} bs {bs:>2}: agreement with the unquantized engine {agree:.5f} "
+                f"(bar > {AGREE_QUANT}); launches {counts}")
+            if agree <= AGREE_QUANT or (quantized == "w8a8" and any(counts.values())):
+                raise AssertionError(f"{quantized} engine: agreement {agree}, launches {counts}")
+        del engine
+
+    engine = TorchInference(path, tta=8)
+    img = rng.integers(0, 256, (4, IMG, IMG, 4), dtype=np.uint8)
+    base = engine.run(img)
+    agree = float((base == plain.run(img)).mean())
+    parts = []
+    for k, flip in ((1, False), (2, False), (3, False), (0, True), (1, True)):
+        view = apply_view(torch.from_numpy(img), k, flip).contiguous().numpy()
+        want = apply_view(torch.from_numpy(base), k, flip).numpy()
+        mismatch = float((engine.run(view) != want).mean())
+        parts.append(f"rot{k * 90}{' flip' if flip else ''} {mismatch:.2e}")
+        if mismatch >= TTA_MISMATCH:
+            raise AssertionError(f"tta=8 is not equivariant: ({k}, {flip}) {mismatch}")
+    log(f"  tta=8 bs 4: agreement with the plain engine {agree:.5f}; mismatch of the "
+        f"transformed prediction (bar {TTA_MISMATCH:g}): " + "; ".join(parts))
+    del engine
+    torch.cuda.empty_cache()
+    return nhwc, totals
+
+
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+
+def encoder_dw_shapes(model, bsz: int, img: int = IMG):
+    """{(B, H, W, C, k): count} of the b5 encoder's stride-1 depthwise
+    convs at ``img``² input (forward hooks on one bs-1 encoder pass)."""
+    import torch
+
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: seen.append((tuple(inp[0].shape), mod.kernel_size[0])))
+        for blk in model.encoder.modules() if hasattr(blk, "conv_dw")
+        for m in (blk.conv_dw,) if m.stride[0] == 1]
+    try:
+        with torch.no_grad(), model.autocast("cuda"):
+            model.encoder(torch.zeros((1, 4, img, img), device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    shapes = {}
+    for (_, c, hh, ww), k in seen:
+        key = (bsz, hh, ww, c, k)
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def nhwc_bounds(shape, fp, skip: str, itemsize: int, h_itemsize: int):
+    """(bytes, flops) of each NHWC pass: the CHW formula with h's item
+    size as a parameter."""
+    bsz, hh, ww, cin = shape
+    hw = hh * ww
+    cm = fp.w1.shape[1]
+    cout = fp.w2.shape[1]
+    k = fp.dw.shape[0]
+    tile = 16 - 2 * (k // 2)
+    n_tiles = -(-hh // tile) * -(-ww // tile)
+    w1_bytes = 4 * (fp.w1.numel() + fp.b1.numel() + fp.dw.numel() + fp.b_dw.numel())
+    p1_bytes = bsz * hw * (cin * itemsize + cm * h_itemsize) + bsz * n_tiles * cm * 4 + w1_bytes
+    p1_flops = 2 * bsz * hw * (cin * cm + k * k * cm)
+    x_read = cin if skip != "none" else 0
+    w2_bytes = 4 * (fp.w2.numel() + fp.b2.numel() + fp.sse_w.numel() + bsz * cm
+                    + (fp.wsk.numel() + fp.bsk.numel() if skip == "conv" else 0))
+    p2_bytes = bsz * hw * (cm * h_itemsize + (x_read + cout) * itemsize) + w2_bytes
+    p2_flops = 2 * bsz * hw * (cm * cout + (cin * cout if skip == "conv" else 0)) \
+        + 5 * bsz * hw * cm
+    return (p1_bytes, p1_flops), (p2_bytes, p2_flops)
+
+
+def _add_time(t, ms, pms, nbytes, flops, mult=1):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    t["ms"] += ms * mult
+    t["plain_ms"] += pms * mult
+    t["bound_ms"] += max(bytes_ms, ops_ms) * mult
+    t["bytes_ms"] += bytes_ms * mult
+    t["ops_ms"] += ops_ms * mult
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "ops"
+
+
+def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
+    """Route latencies, the new kernels' times, the NHWC route's profile.
+    Returns the per-kernel time rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from deadtrees_tpu_torch.infer import TorchInference
+    from deadtrees_tpu_torch.ops import depthwise as dwm
+    from deadtrees_tpu_torch.ops import fused_cell as fc
+    from deadtrees_tpu_torch.ops import fused_mbconv as fm
+
+    chw = TorchInference(path, fused_decoder="chw")
+    rng = np.random.default_rng(SEED + 14)
+    log(f"latency by route (median, host clock around run(), H2D and D2H included; "
+        f"rounds of plain, chw, nhwc, nhwc, chw, plain) on {card}")
+    for bs, rounds in ((1, 7), (4, 7), (32, 4), (128, 2)):
+        img = rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8)
+        times = {"plain": [], "chw": [], "nhwc": []}
+        engines = {"plain": plain, "chw": chw, "nhwc": nhwc}
+        for engine in engines.values():
+            engine.run(img)
+        for _ in range(rounds):
+            for label in ("plain", "chw", "nhwc", "nhwc", "chw", "plain"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engines[label].run(img)
+                times[label].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+        log(f"  bs {bs:>3}: nhwc {med['nhwc']:.3f} ms, chw {med['chw']:.3f} ms, plain "
+            f"{med['plain']:.3f} ms ({bs * 1e3 / med['nhwc']:.2f} / "
+            f"{bs * 1e3 / med['chw']:.2f} / {bs * 1e3 / med['plain']:.2f} img/s; "
+            f"{2 * rounds} runs each)")
+        del img
+    del chw
+
+    log(f"NHWC kernels per launch at the {FAT_BLOCKS} fat shapes (bf16 x, bs 4, CUDA "
+        f"events, median of 21) on {card}; bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, "
+        f"f32 FLOPs / {F32_FLOP_PER_S:.3g} FLOP/s), h's item size 2 (kernel 2) or 4 "
+        "(kernel 3)")
+    gen = torch.Generator().manual_seed(SEED + 15)
+    names = FAT + K3
+    tot = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+           for n in names + (DW,)}
+    for name, i, shape, fp in fat_block_shapes(model, 4):
+        x = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
+        skip = "conv" if fp.wsk is not None else "identity"
+        hw = shape[1] * shape[2]
+        parts = []
+        for kernel3, (n1, n2), h_dtype in ((False, FAT, torch.bfloat16),
+                                           (True, K3, torch.float32)):
+            h, psum = fc.nhwc_pass1(x, fp, h_dtype=h_dtype, count=n1)
+            gate = fm.cse_gate(psum.sum(1), fp, hw)
+            rows = (
+                (n1, lambda: fc.nhwc_pass1(x, fp, h_dtype=h_dtype, count=n1),
+                 lambda: fc.nhwc_pass1_reference(x, fp, h_dtype=h_dtype)),
+                (n2, lambda: fc.nhwc_pass2(h, x, gate, fp, skip=skip, count=n2),
+                 lambda: fc.nhwc_pass2_reference(h, x, gate, fp, skip=skip)),
+            )
+            b1, b2 = nhwc_bounds(shape, fp, skip, 2, 4 if kernel3 else 2)
+            for (kname, kern, ref), (nbytes, flops) in zip(rows, (b1, b2)):
+                ms, pms = cuda_time_ms(kern), cuda_time_ms(ref)
+                bound, by = _add_time(tot[kname], ms, pms, nbytes, flops)
+                parts.append(f"{'k3' if kernel3 else 'k2'} p{kname[-1]} {ms:.4f} "
+                             f"(plain {pms:.4f}, bound {bound:.4f} {by})")
+        log(f"  {name}.conv{i + 1} {tuple(shape[1:])}: " + "; ".join(parts))
+    for kname in names:
+        t = tot[kname]
+        log(f"  {kname}: one forward's {FAT_BLOCKS} launches {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes "
+            f"{t['bytes_ms']:.4f}, ops {t['ops_ms']:.4f})")
+
+    shapes = encoder_dw_shapes(model, TRAIN_BS)
+    log(f"depthwise kernel at the b5 encoder's {sum(shapes.values())} stride-1 depthwise "
+        f"convs ({len(shapes)} shapes, bs {TRAIN_BS}, {IMG}², bf16; CUDA events, median "
+        f"of 21) on {card}; library = F.conv2d(groups=C) on the same tensor")
+    lib_ms = 0.0
+    for (bsz, hh, ww, c, k), n in sorted(shapes.items(), key=lambda kv: -kv[0][1]):
+        x = torch.randn((bsz, hh, ww, c), generator=gen).cuda().to(torch.bfloat16)
+        kern = (torch.randn((k, k, 1, c), generator=gen) * 0.2).cuda()
+        check_dw_case(f"encoder ({bsz}, {hh}, {ww}, {c}) k{k}", x, kern, 1, errs)
+        w_lib = kern.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+        x_lib = x.permute(0, 3, 1, 2)
+        ms = cuda_time_ms(lambda: dwm.depthwise_conv2d(x, kern, force="cuda"))
+        pms = cuda_time_ms(lambda: dwm.depthwise_conv2d_reference(x, kern), reps=5)
+        lms = cuda_time_ms(lambda: F.conv2d(x_lib, w_lib, padding=k // 2, groups=c))
+        nbytes = 2 * x.numel() * 2 + kern.numel() * 4
+        flops = 2 * k * k * x.numel()
+        bound, by = _add_time(tot[DW], ms, pms, nbytes, flops, n)
+        lib_ms += lms * n
+        log(f"  ({bsz}, {hh}, {ww}, {c}) k{k} x{n}: kernel {ms:.4f} ms, plain {pms:.4f}, "
+            f"library {lms:.4f}, bound {bound:.4f} {by}")
+        del x, x_lib
+    t = tot[DW]
+    t["library_ms"] = lib_ms
+    log(f"  {DW}: the encoder's stride-1 depthwise convs {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library {lib_ms:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"(bytes {t['bytes_ms']:.4f}, ops {t['ops_ms']:.4f})")
+    torch.cuda.empty_cache()
+    return tot
+
+
+def phase_nhwc_profile(nhwc, card: str) -> None:
+    """Device time by kernel group and idle share of the nhwc route at bs
+    32 and 128 (torch.profiler, as phase 6)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 16)
+    trace_dir = REPO / "build" / "chip_smoke"
+    log(f"profile of the nhwc route: torch.profiler over 2 runs of run() (H2D and D2H "
+        f"included), per run, on {card}")
+    for bs in (32, 128):
+        img = rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8)
+        nhwc.run(img)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                nhwc.run(img)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 2
+        path = trace_dir / f"trace_nhwc_bs{bs}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        groups = {}
+        for e in events:
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+                g = _kernel_group(e)
+                groups[g] = groups.get(g, 0.0) + e["dur"] / 2e3  # ms per run
+        if not groups:
+            raise RuntimeError("torch.profiler recorded no device activity")
+        busy = sum(groups.values())
+        parts = "; ".join(f"{g} {ms:.3f}" for g, ms in
+                          sorted(groups.items(), key=lambda kv: -kv[1]))
+        log(f"  nhwc bs {bs:>3}: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms, idle "
+            f"{1 - busy / (wall * 1e3):.1%}; ms by group: {parts}")
+
 
 # ---------------------------------------------------------------------------
 # phase 7
@@ -988,7 +1461,13 @@ def main() -> int:
     counts = phase_server(ckpt)
     tot = phase_timings(model, fused, plain, card)
     phase_profile(fused, plain, card)
-    del fused, plain, model
+    del fused
+    errs.update({name: 0.0 for name in (*NHWC_REPLACES, DW)})
+    phase_nhwc_kernels(model, errs)
+    nhwc, nhwc_counts = phase_nhwc_slice(ckpt, hp, plain)
+    nhwc_tot = phase_nhwc_timings(ckpt, model, nhwc, plain, card, errs)
+    phase_nhwc_profile(nhwc, card)
+    del plain, model, nhwc
     torch.cuda.empty_cache()
     augment_row = phase_augment(card)
     augment_row["launches"] = phase_train(card)
@@ -1007,6 +1486,16 @@ def main() -> int:
     kernels.append({k: augment_row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
         "bound_ms", "bound_by", "library_ms")})
+    rows = [(name, NHWC_SOURCE, NHWC_REPLACES[name]) for name in NHWC_REPLACES]
+    for name, source, replaces in rows + [(DW, DW_SOURCE, DW_REPLACES)]:
+        t = nhwc_tot[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": nhwc_counts[name], "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
+            "library_ms": t.get("library_ms"),
+        })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -8,9 +8,10 @@ and returns argmax class maps. The public layout is the JAX package's:
 NHWC uint8 ``(B, H, W, C)`` in, ``(B, H, W)`` uint8 out.
 
 It runs on CUDA unless the caller passes ``device="cpu"``; with no device
-asked for and no CUDA available it raises. The ensemble and exported
-engines, TTA and quantized serving are not ported yet: asking for them
-raises ``NotImplementedError`` naming the ROADMAP item.
+asked for and no CUDA available it raises. Every option of the JAX
+engine is ported (the fused decoder in both layouts, w8 / w8a8
+quantization, TTA) with its validation; the ensemble and exported engines
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from deadtrees_tpu_torch.core.checkpoint import load_model
+from deadtrees_tpu_torch.models import state_dict_from_variables
 from deadtrees_tpu_torch.data.augment import normalize
 from deadtrees_tpu_torch.data.config import DATASET_CONFIG
 
@@ -31,6 +33,8 @@ from deadtrees_tpu_torch.data.config import DATASET_CONFIG
 FUSED_MAX_BATCH = 32
 
 _FUSED_CHOICES = (False, True, "", "auto", "chw", "nhwc")
+_QUANT_CHOICES = (False, True, "", "w8", "w8a8")
+_TTA_CHOICES = (False, 0, True, 4, 8)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -73,35 +77,52 @@ class TorchInference(Inference):
         std: Sequence[float] = DATASET_CONFIG.std,
         fused_decoder: Union[bool, str] = False,
         quantized: Union[bool, str] = False,
+        quant_sites: Sequence[str] = ("y",),
         tta: Union[bool, int] = False,
     ):
         """``fused_decoder`` routes the decoder through the fused CUDA
         kernels with BatchNorms folded at load:
 
         - ``"auto"``: batch-size-aware — requests with ≤32 images run the
-          fused decoder, larger batches the plain model (the serving API
+          CHW kernels, larger batches the plain model (the serving API
           uses this);
-        - ``"chw"`` (or ``True``): always the fused decoder;
-        - ``"nhwc"``: not ported yet (raises).
-        """
+        - ``"chw"`` (or ``True``): always the CHW kernels (kernel 1);
+        - ``"nhwc"``: always the NHWC route, the fat cells on the NHWC
+          kernel pair (``ops/fused_cell.py``).
+
+        ``quantized=True`` (or ``"w8"``) round-trips every large kernel
+        through per-channel int8 once at load, rounds it to bfloat16, and
+        serves the usual path on those weights. ``"w8a8"`` also stores the
+        decoder's intra-block activations of ``quant_sites`` (y, h, s)
+        through int8 with scales calibrated on ``batch[:32]`` of the first
+        :meth:`run`; it runs the NHWC decoder with its own block function.
+        ``tta`` (True = 8, or 4) averages softmax probabilities over the
+        dihedral views of the plain model. The combinations the JAX engine
+        refuses raise ``ValueError`` here too."""
         if fused_decoder not in _FUSED_CHOICES:
             raise ValueError(
                 f"fused_decoder={fused_decoder!r}; expected one of {_FUSED_CHOICES}"
             )
-        if fused_decoder == "nhwc":
-            raise NotImplementedError(
-                "fused_decoder='nhwc' (the fused_ir_fat kernels) is not ported "
-                "yet (ROADMAP.md, 'fused_decoder=\"nhwc\"')"
+        if quantized not in _QUANT_CHOICES:
+            raise ValueError(
+                f"quantized={quantized!r}; expected False, True ('w8'), 'w8' or 'w8a8'"
             )
-        if quantized:
-            raise NotImplementedError(
-                f"quantized={quantized!r} is not ported yet (ROADMAP.md, "
-                "'Serving extras')"
+        if quantized == "w8a8" and fused_decoder:
+            raise ValueError(
+                "quantized='w8a8' runs its own folded-decoder program; "
+                "it cannot be combined with fused_decoder"
             )
-        if tta:
-            raise NotImplementedError(
-                f"tta={tta!r} is not ported yet (ROADMAP.md, 'Serving extras')"
+        bad_sites = set(quant_sites) - {"y", "h", "s"}
+        if bad_sites:
+            raise ValueError(f"unknown quant_sites {sorted(bad_sites)}")
+        if tta not in _TTA_CHOICES:
+            raise ValueError(f"tta={tta!r}; expected False, True (8), 4 or 8")
+        if tta and (fused_decoder or quantized == "w8a8"):
+            raise ValueError(
+                "tta composes with the standard predict path only "
+                "(not fused_decoder / quantized='w8a8')"
             )
+        self.tta_views = 8 if tta is True else int(tta)
         self.device = resolve_device(device)
         self.model, self.variables, self.hparams = load_model(
             checkpoint, device=self.device
@@ -109,12 +130,32 @@ class TorchInference(Inference):
         self.in_channels = _sniff_in_channels(self.variables["params"], self.hparams)
         self.mean = tuple(mean)[: self.in_channels]
         self.std = tuple(std)[: self.in_channels]
+        self.quantized = "w8" if quantized is True else (quantized or False)
+        self.quant_sites = frozenset(quant_sites)
+        if self.quantized:
+            self._round_trip_weights()
         self.fused_decoder = "auto" if fused_decoder == "auto" else bool(fused_decoder)
+        self.layout = "nhwc" if fused_decoder == "nhwc" else "chw"
         self.folded = None
-        if self.fused_decoder:
+        self._scales = None  # w8a8: calibrated on the first run() batch
+        if self.fused_decoder or self.quantized == "w8a8":
             from deadtrees_tpu_torch.ops.fused_decoder import fold_effunetpp_decoder
 
             self.folded = fold_effunetpp_decoder(self.model)
+
+    def _round_trip_weights(self) -> None:
+        """int8 as a storage format: quantize the kernels once, serve their
+        bfloat16-rounded dequantized values (the JAX engine's w8 load)."""
+        from deadtrees_tpu_torch.infer.quantize import dequantize_params, quantize_params
+
+        params = dequantize_params(
+            quantize_params(self.variables["params"]), dtype=torch.bfloat16
+        )
+        params = _map_leaves(params, lambda t: t.float().numpy())
+        self.variables = {"params": params, "batch_stats": self.variables["batch_stats"]}
+        self.model.load_state_dict(
+            state_dict_from_variables(self.variables, encoder_name=self.model.encoder_name)
+        )
 
     def _slice_channels(self, batch: np.ndarray) -> np.ndarray:
         # RGBN checkpoint trained on 3 channels: drop NIR
@@ -128,16 +169,49 @@ class TorchInference(Inference):
             return batch_size <= FUSED_MAX_BATCH
         return bool(self.fused_decoder)
 
+    def _logits_nhwc(self, img_nhwc: torch.Tensor) -> torch.Tensor:
+        """The plain model on a normalized NHWC batch; NHWC float32 logits."""
+        logits = self.model(img_nhwc.permute(0, 3, 1, 2).contiguous())
+        return logits.permute(0, 2, 3, 1)
+
+    def _predict_w8a8(self, img: torch.Tensor) -> torch.Tensor:
+        from deadtrees_tpu_torch.infer.act_quant import calibrate_decoder, make_int8_block_fn
+        from deadtrees_tpu_torch.ops.fused_decoder import (
+            apply_head,
+            encode_features_nhwc,
+            fused_decoder_nhwc,
+        )
+
+        dc = self.model.decoder_channels
+        if self._scales is None:
+            # post-training calibration on a slice of the first batch
+            feats = encode_features_nhwc(self.model, img[:32])
+            self._scales = calibrate_decoder(feats, self.folded, dc)
+            del feats
+        feats = encode_features_nhwc(self.model, img)
+        decoded = fused_decoder_nhwc(
+            feats, self.folded, dc,
+            block_fn=make_int8_block_fn(self._scales, sites=self.quant_sites),
+        )
+        return apply_head(self.model, decoded.permute(0, 3, 1, 2)).argmax(1)
+
     @torch.no_grad()
     def predict(self, img_u8: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) uint8 tensor on the engine's device → (B, H, W)
         uint8 class map on the device."""
-        img = normalize(img_u8.float(), self.mean, self.std)
-        img = img.permute(0, 3, 1, 2).contiguous()
+        img_nhwc = normalize(img_u8.float(), self.mean, self.std)
+        if self.tta_views:
+            from deadtrees_tpu_torch.infer.tta import make_tta_fn
+
+            probs = make_tta_fn(self._logits_nhwc, self.tta_views)(img_nhwc)
+            return probs.argmax(-1).to(torch.uint8)
+        img = img_nhwc.permute(0, 3, 1, 2).contiguous()
+        if self.quantized == "w8a8":
+            return self._predict_w8a8(img).to(torch.uint8)
         if self.uses_fused(img.shape[0]):
             from deadtrees_tpu_torch.ops.fused_decoder import fused_forward
 
-            logits = fused_forward(self.model, self.folded, img)
+            logits = fused_forward(self.model, self.folded, img, layout=self.layout)
             return logits.argmax(1).to(torch.uint8)
         probs = torch.softmax(self.model(img), dim=1)
         return probs.argmax(1).to(torch.uint8)
@@ -147,3 +221,9 @@ class TorchInference(Inference):
         batch = self._slice_channels(np.asarray(batch))
         img = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.uint8))
         return self.predict(img.to(self.device)).cpu().numpy()
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)

@@ -21,6 +21,10 @@ BatchNorms are folded into the adjacent convs once, on load
 (:func:`fold_inverted_residual`). The folded weights keep the JAX
 package's orientation (kernels with the output channel last), which is
 also the layout the kernels read.
+
+:func:`fused_inverted_residual` is the counterpart of the JAX package's
+NHWC variant of the block (hswish, k = 3, h in float32); it runs on the
+NHWC kernel pair of ``ops/fused_cell.py``.
 """
 
 from __future__ import annotations
@@ -121,18 +125,20 @@ def _resolve_skip(fp: FoldedBlockParams, skip: str) -> str:
 
 
 def _check(x: torch.Tensor, fp: FoldedBlockParams, activation: str, ksize: int,
-           skip: str) -> str:
-    """Validate the call; returns the resolved skip mode."""
+           skip: str, *, nhwc: bool = False) -> str:
+    """Validate the call (x NCHW, or NHWC with ``nhwc=True``); returns the
+    resolved skip mode."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation={activation!r}; expected one of {ACTIVATIONS}")
     if ksize not in (3, 5):
         raise ValueError(f"ksize={ksize}; expected 3 or 5")
     if x.dim() != 4:
-        raise ValueError(f"expected x of shape (B, C, H, W), got {tuple(x.shape)}")
+        layout = "(B, H, W, C)" if nhwc else "(B, C, H, W)"
+        raise ValueError(f"expected x of shape {layout}, got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x dtype {x.dtype}; expected float32 or bfloat16")
     skip = _resolve_skip(fp, skip)
-    cin = x.shape[1]
+    cin = x.shape[-1] if nhwc else x.shape[1]
     cm = fp.w1.shape[1]
     cout = fp.w2.shape[1]
     expect = {
@@ -233,7 +239,7 @@ def _kernels() -> ctypes.CDLL:
 
 def _cuda_check(x: torch.Tensor, fp: FoldedBlockParams) -> None:
     if not x.is_contiguous():
-        raise ValueError("x must be contiguous (NCHW)")
+        raise ValueError("x must be contiguous")
     if x.shape[0] > 65535:
         raise ValueError(f"batch {x.shape[0]} exceeds the kernel grid (65535)")
     for name, t in fp._asdict().items():
@@ -337,3 +343,42 @@ def fused_inverted_residual_chw(
     h, psum = chw_pass1(x_chw, fp, activation=activation, ksize=ksize)
     gate = cse_gate(psum.sum(1), fp, x_chw.shape[2] * x_chw.shape[3])
     return chw_pass2(h, x_chw, gate, fp, skip=skip)
+
+
+# ---------------------------------------------------------------------------
+# the NHWC block with h in float32 (kernel 3)
+# ---------------------------------------------------------------------------
+
+
+def fused_inverted_residual_reference(x_nhwc: torch.Tensor, fp: FoldedBlockParams):
+    """:func:`fused_inverted_residual` in plain PyTorch: float32
+    arithmetic, h kept in float32 between the passes."""
+    from deadtrees_tpu_torch.ops import fused_cell
+
+    skip = _check(x_nhwc, fp, "hswish", 3, "auto", nhwc=True)
+    h, sums = fused_cell.nhwc_pass1_reference(x_nhwc, fp, h_dtype=torch.float32)
+    gate = cse_gate(sums.sum(1), fp, x_nhwc.shape[1] * x_nhwc.shape[2])
+    return fused_cell.nhwc_pass2_reference(h, x_nhwc, gate, fp, skip=skip)
+
+
+def fused_inverted_residual(x_nhwc: torch.Tensor, fp: FoldedBlockParams) -> torch.Tensor:
+    """One BN-folded inverted-residual block on NHWC tensors, hswish and a
+    3×3 depthwise conv, with h stored in float32 between the passes
+    (counterpart of ``deadtrees_tpu.ops.fused_mbconv.fused_inverted_residual``);
+    returns (B, H, W, C_out) in x's dtype.
+
+    It runs on the NHWC kernel pair of ``ops/fused_cell.py``
+    (``csrc/fused_ir_nhwc.cu``) with h in float32 for a CUDA tensor, and
+    :func:`fused_inverted_residual_reference` for a CPU tensor. The JAX
+    kernel routes an identity skip through an ``eye(C_in, C_out)``
+    product; here it adds x: in float32, x·I equals x exactly."""
+    from deadtrees_tpu_torch.ops import fused_cell
+
+    skip = _check(x_nhwc, fp, "hswish", 3, "auto", nhwc=True)
+    if x_nhwc.device.type == "cpu":
+        return fused_inverted_residual_reference(x_nhwc, fp)
+    h, psum = fused_cell.nhwc_pass1(x_nhwc, fp, h_dtype=torch.float32,
+                                    count="fused_inverted_residual_pass1")
+    gate = cse_gate(psum.sum(1), fp, x_nhwc.shape[1] * x_nhwc.shape[2])
+    return fused_cell.nhwc_pass2(h, x_nhwc, gate, fp, skip=skip,
+                                 count="fused_inverted_residual_pass2")

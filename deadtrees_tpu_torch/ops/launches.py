@@ -11,6 +11,11 @@ from __future__ import annotations
 LAUNCHES = {
     "fused_ir_chw_pass1": 0,  # ops/fused_mbconv.py
     "fused_ir_chw_pass2": 0,  # ops/fused_mbconv.py
+    "fused_ir_fat_pass1": 0,  # ops/fused_cell.py
+    "fused_ir_fat_pass2": 0,  # ops/fused_cell.py
+    "fused_inverted_residual_pass1": 0,  # ops/fused_mbconv.py
+    "fused_inverted_residual_pass2": 0,  # ops/fused_mbconv.py
+    "depthwise_conv2d": 0,  # ops/depthwise.py
     "augment_jitter_normalize": 0,  # ops/augment.py
 }
 

@@ -7,8 +7,9 @@ name/type, elapsed seconds), ``GET /healthz`` (liveness + loaded
 configuration) and ``GET /metrics`` (Prometheus request counters).
 
 The backend is ``model_type=torch``: :class:`TorchInference` on the
-checkpoint, with the fused decoder for batches of ≤32 images. The
-exported-artifact engine and TTA are not ported yet and raise.
+checkpoint, with the fused decoder for batches of ≤32 images, or with
+``tta`` dihedral views on the plain model. The exported-artifact engine is
+not ported yet and raises.
 
 Two server flavors with the same routes:
 
@@ -63,17 +64,18 @@ class SegmentationService:
         device=None,
     ):
         """``device`` is where the engine runs: CUDA unless ``"cpu"`` is
-        passed; with CUDA missing and no device given this raises."""
+        passed; with CUDA missing and no device given this raises.
+
+        ``tta`` (0/4/8): dihedral test-time-augmentation views
+        (``infer/tta.py``), an accuracy-over-latency mode (about ``tta``
+        times the device work a request). The engine contract excludes the
+        fused decoder under TTA, so ``tta > 0`` serves the plain model."""
         from deadtrees_tpu_torch.infer import TorchInference
 
         if exported:
             raise NotImplementedError(
                 "the exported-artifact engine is not ported yet "
-                "(ROADMAP.md, 'Serving extras')"
-            )
-        if tta:
-            raise NotImplementedError(
-                f"tta={tta} is not ported yet (ROADMAP.md, 'Serving extras')"
+                "(ROADMAP.md, 'export')"
             )
         if not checkpoint:
             raise ValueError("Need a checkpoint")
@@ -88,10 +90,14 @@ class SegmentationService:
         # API requests are small batches: batch-size-aware decoder routing
         # (≤32 images → fused kernels). The port builds only efficientunet++
         # (create_model raises NotImplementedError for anything else), so
-        # every checkpoint that loads takes "auto".
-        self.engines["torch"] = TorchInference(
-            checkpoint, fused_decoder="auto", device=device
-        )
+        # every checkpoint that loads takes "auto", unless TTA asks for the
+        # plain model.
+        if tta:
+            self.engines["torch"] = TorchInference(checkpoint, tta=tta, device=device)
+        else:
+            self.engines["torch"] = TorchInference(
+                checkpoint, fused_decoder="auto", device=device
+            )
         if batch_wait_ms is not None:
             # dynamic batching: concurrent requests of the same image size
             # coalesce into one device dispatch (power-of-two buckets)
@@ -370,7 +376,8 @@ def main() -> None:
     )
     ap.add_argument(
         "--tta", type=int, default=0, choices=(0, 4, 8),
-        help="test-time-augmentation views (not ported yet: >0 raises)",
+        help="test-time-augmentation views (0 = off; 4 or 8 serve the plain "
+        "model over that many dihedral views)",
     )
     args = ap.parse_args()
 

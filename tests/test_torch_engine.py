@@ -44,6 +44,18 @@ HP = dict(
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two intra-op threads: the suite runs in several worker processes at
+    once, and torch's default of a thread per core then oversubscribes the
+    machine (the TTA engine's eight bf16 views slow down many times over);
+    these small models run as fast on two."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_ckpt(tmp_path_factory):
     jmodel = jax_create_model(**HP, dtype=jnp.float32)
@@ -187,22 +199,122 @@ def test_no_device_means_cuda(jax_ckpt, monkeypatch):
 
 
 def test_unsupported_knobs_raise(jax_ckpt, tmp_path):
+    """The JAX engine's refusals, as ValueError; a checkpoint of an
+    architecture the port does not build yet raises NotImplementedError."""
     path, _ = jax_ckpt
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchInference(path, device="cpu", fused_decoder="nhwc")
-    for quantized in (True, "w8", "w8a8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TorchInference(path, device="cpu", quantized=quantized)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchInference(path, device="cpu", tta=4)
-    with pytest.raises(ValueError, match="fused_decoder"):
-        TorchInference(path, device="cpu", fused_decoder="fast")
+    for kwargs, match in (
+        (dict(fused_decoder="fast"), "fused_decoder"),
+        (dict(quantized="w4"), "quantized"),
+        (dict(quantized="w8a8", fused_decoder="nhwc"), "w8a8"),
+        (dict(quantized="w8a8", fused_decoder="auto"), "w8a8"),
+        (dict(quantized="w8a8", quant_sites=("y", "q")), "quant_sites"),
+        (dict(tta=5), "tta"),
+        (dict(tta=4, fused_decoder="auto"), "standard predict path"),
+        (dict(tta=True, quantized="w8a8"), "standard predict path"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            TorchInference(path, device="cpu", **kwargs)
     unet = tmp_path / "unet.ckpt"
     save_checkpoint(unet, params={}, batch_stats={}, hparams=dict(
         architecture="unet", encoder_name="resnet18", in_channels=4, classes=3,
         decoder_channels=[16, 16, 8, 8, 8]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchInference(unet, device="cpu", fused_decoder="auto")
+
+
+@pytest.fixture(scope="module")
+def engine_img():
+    return np.random.default_rng(0).integers(0, 255, (2, 32, 32, 4), np.uint8)
+
+
+def _mismatch(got, want):
+    assert got.shape == want.shape and got.dtype == np.uint8
+    return float((got != want).mean())
+
+
+@pytest.mark.parametrize("options", [
+    dict(fused_decoder="nhwc"), dict(quantized="w8"), dict(quantized=True),
+], ids=["nhwc", "w8", "w8-true"])
+def test_engine_options_match_jax_engine(jax_ckpt, engine_img, options):
+    """Each engine option against the same ``JaxInference`` option, both in
+    bfloat16 as served: mismatch < 2e-2 (the bar of
+    test_engine_matches_jax_engine)."""
+    path, _ = jax_ckpt
+    want = JaxInference(path, **options).run(engine_img)
+    engine = TorchInference(path, device="cpu", **options)
+    assert _mismatch(engine.run(engine_img), want) < 2e-2
+    if "fused_decoder" in options:
+        assert engine.layout == "nhwc" and engine.uses_fused(33)
+
+
+@pytest.mark.parametrize("tta", [4, 8, True])
+def test_engine_tta_matches_jax_engine(jax_ckpt, engine_img, tta):
+    """``tta`` against the JAX engine's TTA program: its normalize, its
+    ``make_tta_fn`` and its model in bfloat16, with the model's forward
+    jitted once for all views (the engine jits the whole unrolled program;
+    the arithmetic is the same). Mismatch < 2e-2."""
+    from deadtrees_tpu.core import load_model as jax_load_model
+    from deadtrees_tpu.data.augment import normalize as jax_normalize
+    from deadtrees_tpu.infer import tta as jtta
+
+    path, _ = jax_ckpt
+    jmodel, jvars, _ = jax_load_model(path)
+    forward = jax.jit(lambda x: jmodel.apply(jvars, x, train=False))
+    engine = TorchInference(path, device="cpu", tta=tta)
+    views = 8 if tta is True else tta
+    assert engine.tta_views == views and engine.folded is None
+    img = jax_normalize(jnp.asarray(engine_img, jnp.float32), engine.mean, engine.std)
+    want = np.asarray(jnp.argmax(jtta.make_tta_fn(forward, views)(img), -1)).astype(np.uint8)
+    assert _mismatch(engine.run(engine_img), want) < 2e-2
+
+
+def test_engine_w8a8_matches_jax_engine(jax_ckpt, engine_img):
+    """w8a8 calibrates on the first batch and reuses its scales; its class
+    maps agree with the JAX w8a8 engine's (< 2e-2) and, like JAX's, with
+    the unquantized engine above JAX's own bar (> 0.95)."""
+    path, _ = jax_ckpt
+    want = JaxInference(path, quantized="w8a8").run(engine_img)
+    engine = TorchInference(path, device="cpu", quantized="w8a8", quant_sites=("y", "h", "s"))
+    assert engine._scales is None and engine.folded is not None
+    got = engine.run(engine_img)
+    scales = engine._scales
+    assert scales is not None and len(scales) == 66
+    np.testing.assert_array_equal(engine.run(engine_img), got)
+    assert engine._scales is scales
+    plain = TorchInference(path, device="cpu").run(engine_img)
+    assert (got == plain).mean() > 0.95
+    default = TorchInference(path, device="cpu", quantized="w8a8")
+    assert default.quant_sites == frozenset({"y"})
+    assert _mismatch(default.run(engine_img), want) < 2e-2
+
+
+def test_w8_engine_serves_round_tripped_weights(jax_ckpt):
+    """w8 loads each large kernel as its int8 round trip rounded to
+    bfloat16; small leaves and BatchNorms stay as they were."""
+    path, variables = jax_ckpt
+    engine = TorchInference(path, device="cpu", quantized="w8")
+    plain = TorchInference(path, device="cpu")
+    w8, sd = engine.model.state_dict(), plain.model.state_dict()
+    changed = [k for k in sd if not torch.equal(w8[k], sd[k])]
+    assert changed and all(k.endswith("weight") for k in changed)
+    for k in changed:
+        assert torch.equal(w8[k].to(torch.bfloat16).float(), w8[k]), k
+        assert w8[k].numel() >= 1024, k
+
+
+def test_tta_engine_is_equivariant(jax_ckpt, engine_img):
+    """tta=8 averages over the dihedral group: a rot90'd or flipped tile
+    gives the rot90'd or flipped class map, up to near-ties of the bf16
+    logits (< 1e-2 of pixels)."""
+    path, _ = jax_ckpt
+    engine = TorchInference(path, device="cpu", tta=8)
+    base = engine.run(engine_img)
+    for k, flip in ((1, False), (2, False), (3, True)):
+        view = np.rot90(engine_img, k, axes=(1, 2))
+        want = np.rot90(base, k, axes=(1, 2))
+        if flip:
+            view, want = view[:, :, ::-1], want[:, :, ::-1]
+        assert _mismatch(engine.run(np.ascontiguousarray(view)), np.ascontiguousarray(want)) < 1e-2
 
 
 def test_rgb_checkpoint_drops_nir(tmp_path):

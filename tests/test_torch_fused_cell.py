@@ -1,0 +1,147 @@
+"""The port's NHWC fused blocks against the JAX ones.
+
+``fused_ir_fat`` (kernel 2) at the shapes of tests/test_fused_cell.py and
+``fused_inverted_residual`` (kernel 3) at those of
+tests/test_fused_mbconv.py. On a CPU tensor the port runs each kernel's
+plain PyTorch version; the JAX side runs its Pallas kernel in interpret
+mode, as its own tests do. Same inputs (numpy, seeded), the JAX tests'
+bar: max error < 1e-3.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_fused_mbconv import _carried_block, _flax_block, _random_folded
+
+from deadtrees_tpu.ops import fused_cell as jfc
+from deadtrees_tpu.ops import fused_mbconv as jfm
+from deadtrees_tpu_torch.ops import fused_cell as tfc
+from deadtrees_tpu_torch.ops import fused_mbconv as tfm
+from deadtrees_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts
+
+
+def _pair(cin, cout, shape, seed):
+    """(x of ``shape + (cin,)``, JAX folded params, the port's folded
+    params) for one randomized flax InvertedResidual carried into the
+    port's block."""
+    _, _, variables = _flax_block(cin, cout, 8, seed=seed)
+    x = np.random.default_rng(seed).normal(size=shape + (cin,)).astype(np.float32)
+    fp_j = jfm.fold_inverted_residual(variables["params"], variables["batch_stats"])
+    fp = tfm.fold_inverted_residual(_carried_block(variables, cin, cout))
+    return x, fp_j, fp
+
+
+@pytest.mark.parametrize(
+    "cin,cout,hw",
+    [(48, 16, 16), (32, 32, 16), (40, 16, 8)],
+    ids=["conv-skip", "identity", "odd-channels"],
+)
+def test_fused_ir_fat_matches_jax(cin, cout, hw):
+    x, fp_j, fp = _pair(cin, cout, (2, hw, hw), seed=0)
+    want = np.asarray(jfc.fused_ir_fat(jnp.asarray(x), fp_j, interpret=True))
+    reset_launch_counts()
+    got = tfc.fused_ir_fat(torch.from_numpy(x), fp)
+    assert all(n == 0 for n in LAUNCHES.values()), LAUNCHES  # CPU: the plain version
+    assert got.shape == want.shape
+    err = np.abs(got.numpy() - want).max()
+    assert err < 1e-3, f"max err {err}"
+
+
+def test_fused_ir_fat_multi_tile_matches_jax():
+    """H = 96 spans several JAX tiles (and many port tiles): the cSE pool
+    sums over all of them and halo rows carry no act(b1)."""
+    x, fp_j, fp = _pair(32, 32, (3, 96, 8), seed=1)
+    want = np.asarray(jfc.fused_ir_fat(jnp.asarray(x), fp_j, interpret=True))
+    got = tfc.fused_ir_fat(torch.from_numpy(x), fp).numpy()
+    err = np.abs(got - want).max()
+    assert err < 1e-3, f"max err {err}"
+
+
+@pytest.mark.parametrize("ksize,act,skip", [(5, "silu", "conv"), (3, "silu", "identity")])
+def test_fused_ir_fat_modes_match_jax(ksize, act, skip):
+    rng = np.random.default_rng(7)
+    cin, cout = 24, (16 if skip == "conv" else 24)
+    fp_j, fp = _random_folded(rng, cin, cin, cout, ksize, skip)
+    x = rng.normal(size=(2, 12, 12, cin)).astype(np.float32)
+    want = np.asarray(jfc.fused_ir_fat(
+        jnp.asarray(x), fp_j, interpret=True, activation=act, ksize=ksize, skip=skip))
+    got = tfc.fused_ir_fat(torch.from_numpy(x), fp, activation=act, ksize=ksize, skip=skip)
+    err = np.abs(got.numpy() - want).max()
+    assert err < 1e-3, f"max err {err}"
+
+
+@pytest.mark.parametrize(
+    "cin,cout,hw", [(16, 16, 32), (24, 16, 16), (16, 32, 8), (16, 16, 24)],
+    ids=["identity", "conv-skip", "widen", "ragged-24"],
+)
+def test_fused_inverted_residual_matches_jax(cin, cout, hw):
+    x, fp_j, fp = _pair(cin, cout, (2, hw, hw), seed=3)
+    want = np.asarray(jfm.fused_inverted_residual(jnp.asarray(x), fp_j, interpret=True))
+    got = tfm.fused_inverted_residual(torch.from_numpy(x), fp)
+    assert got.shape == want.shape
+    err = np.abs(got.numpy() - want).max()
+    assert err < 1e-3, f"max err {err}"
+
+
+def test_fat_bfloat16_matches_jax():
+    """bf16 input: h rounds to bf16 between the passes on both sides (the
+    fat cell), or stays float32 (kernel 3). Bar 2e-2·max(1, max|ref|):
+    one bf16 rounding may land on the other side of a tie."""
+    rng = np.random.default_rng(5)
+    fp_j, fp = _random_folded(rng, 24, 24, 16, 3, "conv")
+    x = rng.normal(size=(2, 16, 16, 24)).astype(np.float32)
+    x_j = jnp.asarray(x, jnp.bfloat16)
+    x_t = torch.from_numpy(np.asarray(x_j.astype(jnp.float32))).to(torch.bfloat16)
+    for jfn, tfn in ((lambda a: jfc.fused_ir_fat(a, fp_j, interpret=True),
+                      lambda a: tfc.fused_ir_fat(a, fp)),
+                     (lambda a: jfm.fused_inverted_residual(a, fp_j, interpret=True),
+                      lambda a: tfm.fused_inverted_residual(a, fp))):
+        want = np.asarray(jfn(x_j).astype(jnp.float32))
+        got = tfn(x_t)
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().numpy() - want).max()
+        assert err < 2e-2 * max(1.0, np.abs(want).max()), f"max err {err}"
+
+
+def test_h_dtype_of_the_two_kernels():
+    """Kernel 2 keeps h in x's dtype, kernel 3 in float32: the passes'
+    plain versions say so."""
+    rng = np.random.default_rng(9)
+    _, fp = _random_folded(rng, 16, 16, 16, 3, "identity")
+    x = torch.from_numpy(rng.normal(size=(1, 8, 8, 16)).astype(np.float32)).to(torch.bfloat16)
+    h, sums = tfc.nhwc_pass1_reference(x, fp)
+    assert h.dtype == torch.bfloat16 and sums.dtype == torch.float32
+    h32, _ = tfc.nhwc_pass1_reference(x, fp, h_dtype=torch.float32)
+    assert h32.dtype == torch.float32
+    torch.testing.assert_close(h32.to(torch.bfloat16), h, rtol=0, atol=0)
+
+
+def test_pick_th_is_the_jax_rule():
+    for args in [(32, 32, 688, 688, 1), (256, 256, 256, 256, 1), (2, 2, 432, 432, 1),
+                 (4, 4, 152, 152, 1), (512, 512, 64, 64, 1), (12, 12, 96, 96, 1)]:
+        assert tfc._pick_th(*args) == jfc._pick_th(*args), args
+
+
+def test_nhwc_wrappers_reject_what_the_kernels_cannot_take():
+    rng = np.random.default_rng(6)
+    _, fp = _random_folded(rng, 16, 16, 16, 3, "identity")
+    x = torch.zeros((1, 8, 8, 16))
+    with pytest.raises(ValueError, match="activation"):
+        tfc.fused_ir_fat(x, fp, activation="relu")
+    with pytest.raises(ValueError, match="ksize"):
+        tfc.fused_ir_fat(x, fp, ksize=7)
+    with pytest.raises(ValueError, match="dtype"):
+        tfc.fused_ir_fat(x.half(), fp)
+    with pytest.raises(ValueError, match="shape"):
+        tfc.fused_ir_fat(torch.zeros((1, 8, 8, 8)), fp)
+    with pytest.raises(ValueError, match="wsk"):
+        tfc.fused_ir_fat(x, fp, skip="conv")
+    with pytest.raises(ValueError, match="device"):
+        tfc.fused_ir_fat(x.to("meta"), fp)
+    with pytest.raises(ValueError, match="device"):
+        tfm.fused_inverted_residual(x.to("meta"), fp)
+    with pytest.raises(ValueError, match="dw"):  # kernel 3 is k = 3 only
+        tfm.fused_inverted_residual(x, fp._replace(dw=torch.zeros((5, 5, 16))))
+    with pytest.raises(ValueError, match="device"):  # the passes alone need the card
+        tfc.nhwc_pass1(x, fp)

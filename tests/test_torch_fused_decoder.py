@@ -18,6 +18,7 @@ from deadtrees_tpu.models import create_model as jax_create_model
 from deadtrees_tpu.ops import fused_decoder as jfd
 from deadtrees_tpu.ops import fused_mbconv as jfm
 from deadtrees_tpu_torch.models import create_model, state_dict_from_variables
+from deadtrees_tpu_torch.ops import fused_cell as tfc
 from deadtrees_tpu_torch.ops import fused_decoder as tfd
 from deadtrees_tpu_torch.ops import fused_mbconv as tfm
 
@@ -89,10 +90,72 @@ def test_folded_block_matches_jax_xla_block(pair):
 
 
 def test_unported_layout_raises(pair):
+    """Both JAX layouts are ported; any other layout raises."""
     _, _, model = pair
     folded = tfd.fold_effunetpp_decoder(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfd.fused_forward(model, folded, torch.zeros((1, 4, 32, 32)), layout="nhwc")
+    with pytest.raises(ValueError, match="layout"):
+        tfd.fused_forward(model, folded, torch.zeros((1, 4, 32, 32)), layout="hwcn")
+
+
+def test_fused_forward_nhwc_matches_jax(pair):
+    """``layout="nhwc"`` against JAX's ``fused_forward(..., interpret=True,
+    layout="nhwc")`` (bar 5e-3, the JAX test's own), and the routing: the
+    port sends to ``fused_ir_fat`` exactly the blocks that JAX's
+    ``_one_block_nhwc`` sends there in interpret mode."""
+    import deadtrees_tpu.ops.fused_cell as jfc
+
+    jmodel, variables, model = pair
+    img = np.random.default_rng(2).normal(size=(1, 32, 32, 4)).astype(np.float32)
+    folded_j = jfd.fold_effunetpp_decoder(variables)
+    jax_routed, port_routed = [], []
+    jax_fat = jfc.fused_ir_fat
+
+    def jax_spy(x, fp, **kwargs):
+        jax_routed.append(tuple(x.shape))
+        return jax_fat(x, fp, **kwargs)
+
+    jfc.fused_ir_fat = jax_spy
+    try:
+        want = np.asarray(jfd.fused_forward(
+            jmodel, variables, folded_j, jnp.asarray(img), interpret=True, layout="nhwc"))
+    finally:
+        jfc.fused_ir_fat = jax_fat
+
+    folded = tfd.fold_effunetpp_decoder(model)
+    port_fat = tfc.fused_ir_fat
+
+    def port_spy(x, fp, **kwargs):
+        port_routed.append(tuple(x.shape))
+        return port_fat(x, fp, **kwargs)
+
+    tfc.fused_ir_fat = port_spy
+    try:
+        with torch.no_grad():
+            got = tfd.fused_forward(
+                model, folded, torch.from_numpy(img.transpose(0, 3, 1, 2).copy()),
+                layout="nhwc")
+    finally:
+        tfc.fused_ir_fat = port_fat
+    assert port_routed == jax_routed and len(port_routed) > 0, (port_routed, jax_routed)
+    got = got.numpy().transpose(0, 2, 3, 1)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err < 5e-3, f"max err {err}"
+
+
+def test_folded_block_nhwc_matches_jax_xla_block(pair):
+    """The plain ``folded_block_nhwc`` against ``folded_block_xla_nhwc`` on
+    the same folded weights (cell x_0_1: projected skip, then identity)."""
+    _, variables, model = pair
+    folded_j = jfd.fold_effunetpp_decoder(variables)
+    folded = tfd.fold_effunetpp_decoder(model)
+    rng = np.random.default_rng(4)
+    for i in (0, 1):
+        fp = folded["x_0_1"][i]
+        x = rng.normal(size=(2, 12, 20, fp.w1.shape[0])).astype(np.float32)
+        want = np.asarray(jfd.folded_block_xla_nhwc(jnp.asarray(x), folded_j["x_0_1"][i]))
+        got = tfd.folded_block_nhwc(torch.from_numpy(x), fp).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 def test_jax_fold_is_what_the_kernel_reads():

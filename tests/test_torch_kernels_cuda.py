@@ -9,13 +9,17 @@ without them:
 Bars: float32 max error < 1e-3·max(1, max|ref|) (CUDA-core float32 sums
 in another order); bfloat16 < 2e-2·max(1, max|ref|) (h and the output are
 rounded to bfloat16, and a rounding may land on the other side of a tie).
-The augment kernel rounds as its plain version does: bit-equal.
+The augment kernel rounds as its plain version does: bit-equal. The
+depthwise kernel sums the taps in the plain version's order: float32
+within 1e-5·max(1, max|ref|), bfloat16 within one rounding of the output.
 """
 
 import pytest
 import torch
 
 from deadtrees_tpu_torch.ops import augment as aug
+from deadtrees_tpu_torch.ops import depthwise as dwm
+from deadtrees_tpu_torch.ops import fused_cell as fc
 from deadtrees_tpu_torch.ops import fused_mbconv as fm
 from deadtrees_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts
 
@@ -108,3 +112,107 @@ def test_augment_kernel_matches_plain(card, shape):
     assert LAUNCHES["augment_jitter_normalize"] == 1
     assert got.shape == ref.shape == (shape[0], shape[3], shape[1], shape[2])
     assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "cin,cout,hh,ww,ksize,act,skip",
+    [
+        (64, 32, 40, 72, 3, "hswish", "auto"),  # ragged, projected skip
+        (96, 96, 33, 17, 3, "hswish", "auto"),  # ragged, identity skip
+        (128, 40, 45, 70, 5, "silu", "none"),  # 64 mid channels a block
+        (72, 40, 29, 30, 5, "hswish", "conv"),  # 32 mid channels a block
+        (64, 64, 16, 16, 3, "silu", "identity"),
+        (688, 256, 32, 32, 3, "hswish", "conv"),  # the flagship's widest cell
+    ],
+)
+def test_nhwc_kernels_match_plain(card, dtype, cin, cout, hh, ww, ksize, act, skip):
+    """The NHWC pair as kernel 2 (h in x's dtype) and, for hswish k = 3,
+    as kernel 3 (h in float32)."""
+    gen = torch.Generator().manual_seed(cin * 1000 + hh + 7)
+    conv = skip == "conv" or (skip == "auto" and cin != cout)
+    fp = _folded(cin, cout, ksize, conv, gen, card)
+    x = torch.randn((2, hh, ww, cin), generator=gen).to(card, dtype)
+    ref = fc.fused_ir_fat_reference(x, fp, activation=act, ksize=ksize, skip=skip)
+    reset_launch_counts()
+    got = fc.fused_ir_fat(x, fp, activation=act, ksize=ksize, skip=skip)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_ir_fat_pass1"] == 1 and LAUNCHES["fused_ir_fat_pass2"] == 1
+    assert got.dtype == dtype and got.shape == (2, hh, ww, cout)
+    err = float((got.float() - ref.float()).abs().max())
+    assert err < BAR[dtype] * max(1.0, float(ref.float().abs().max())), err
+    if act == "hswish" and ksize == 3 and skip == "auto":
+        ref3 = fm.fused_inverted_residual_reference(x, fp)
+        got3 = fm.fused_inverted_residual(x, fp)
+        torch.cuda.synchronize()
+        assert LAUNCHES["fused_inverted_residual_pass1"] == 1
+        assert LAUNCHES["fused_inverted_residual_pass2"] == 1
+        err3 = float((got3.float() - ref3.float()).abs().max())
+        assert err3 < BAR[dtype] * max(1.0, float(ref3.float().abs().max())), err3
+
+
+def test_nhwc_wrappers_raise_on_what_the_kernels_cannot_take(card):
+    gen = torch.Generator().manual_seed(1)
+    fp = _folded(64, 64, 3, False, gen, card)
+    x = torch.randn((1, 8, 8, 64), generator=gen).to(card)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.fused_ir_fat(x.transpose(1, 2), fp)
+    cpu_fp = fm.FoldedBlockParams(*(None if t is None else t.cpu() for t in fp))
+    with pytest.raises(ValueError, match="folded"):
+        fc.fused_ir_fat(x, cpu_fp)
+    with pytest.raises(ValueError, match="bfloat16"):  # h in bf16 needs x in bf16
+        fc.nhwc_pass1(x, fp, h_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hswish"):  # kernel 3's h type, other modes
+        fc.nhwc_pass1(x.to(torch.bfloat16), fp, activation="silu", h_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "shape,ksize,strides",
+    [
+        ((2, 64, 64, 32), 3, 1),
+        ((2, 33, 17, 24), 5, 1),  # ragged
+        ((2, 64, 64, 48), 3, 2),
+        ((1, 45, 31, 40), 5, 2),  # ragged, stride 2
+        ((1, 20, 12, 6), 7, 1),  # a k the kernel takes at run time
+    ],
+)
+def test_depthwise_kernel_matches_plain(card, dtype, shape, ksize, strides):
+    gen = torch.Generator().manual_seed(shape[1] * 10 + ksize)
+    x = torch.randn(shape, generator=gen).to(card, dtype)
+    k = torch.randn((ksize, ksize, 1, shape[-1]), generator=gen).to(card)
+    ref = dwm.depthwise_conv2d_reference(x, k, strides=strides)
+    reset_launch_counts()
+    got = dwm.depthwise_conv2d(x, k, strides=strides, force="cuda")
+    torch.cuda.synchronize()
+    assert LAUNCHES["depthwise_conv2d"] == 1
+    assert got.dtype == dtype and got.shape == ref.shape
+    bar = (1e-5 if dtype == torch.float32 else 1e-2) * max(1.0, float(ref.float().abs().max()))
+    assert float((got.float() - ref.float()).abs().max()) <= bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_depthwise_kernel_on_a_misaligned_view(card, dtype):
+    """A contiguous view that starts one element into its storage is not
+    16-byte aligned: the kernel takes its one-channel-a-thread path."""
+    gen = torch.Generator().manual_seed(3)
+    shape = (2, 20, 24, 32)
+    n = 2 * 20 * 24 * 32
+    x = torch.randn((n + 1,), generator=gen).to(card, dtype)[1:].view(shape)
+    k = torch.randn((3, 3, 1, 32), generator=gen).to(card)
+    ref = dwm.depthwise_conv2d_reference(x, k)
+    got = dwm.depthwise_conv2d(x, k, force="cuda")
+    torch.cuda.synchronize()
+    bar = (1e-5 if dtype == torch.float32 else 1e-2) * max(1.0, float(ref.float().abs().max()))
+    assert float((got.float() - ref.float()).abs().max()) <= bar
+
+
+def test_depthwise_wrapper_raises_on_what_the_kernel_cannot_take(card):
+    x = torch.randn((1, 8, 8, 4), device=card)
+    k = torch.randn((3, 3, 1, 4), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        dwm.depthwise_conv2d(x.transpose(1, 2), k, force="cuda")
+    with pytest.raises(ValueError, match="kernel must be on"):
+        dwm.depthwise_conv2d(x, k.cpu(), force="cuda")
+    with pytest.raises(ValueError, match="device"):
+        dwm.depthwise_conv2d(x.cpu(), k.cpu(), force="cuda")

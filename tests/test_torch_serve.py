@@ -143,12 +143,18 @@ def test_service_needs_cuda_unless_told(ckpt, monkeypatch):
 
 
 def test_service_unported_options_raise(ckpt):
+    """The exported-artifact engine still raises; ``tta`` now serves the
+    plain model over its views, as the JAX service does."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SegmentationService(ckpt, exported="model.dtexp", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SegmentationService(ckpt, tta=4, device="cpu")
     with pytest.raises(ValueError, match="checkpoint"):
         SegmentationService(None, device="cpu")
+    service = SegmentationService(ckpt, tta=4, device="cpu")
+    engine = service.engines["torch"]
+    assert engine.tta_views == 4 and not engine.fused_decoder
+    assert service.health()["tta"] == 4
+    got, headers = service.segment(_png(3))
+    assert _mask(got).shape == (32, 32) and headers["X-model-type"] == "torch"
 
 
 # --------------------------------------------------------------------------
