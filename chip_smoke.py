@@ -19,7 +19,10 @@ Phases (each raises on failure, so the script exits non-zero):
 4. The server (the main path whose kernel launches are counted): 8
    concurrent PNG requests to ``serve_stdlib`` with batching on.
 5. Timings: fused vs plain latency, and each kernel's time per launch at
-   the flagship shapes beside its bound and its plain version.
+   the flagship shapes beside its plain version, its float32 bound and its
+   tensor-core bound (the 1x1 products at the bf16 tensor rate), with the
+   share of each bound. The bf16 pass 1 runs its products on the tensor
+   cores, so its bound is the tensor-core one.
 6. Profile: device time by kernel group and the device's idle share for
    both engines at bs 4 and 32 (torch.profiler).
 7. The augment kernel (fused colour jitter + normalize) against its plain
@@ -39,7 +42,8 @@ Phases (each raises on failure, so the script exits non-zero):
    (bs 1, bfloat16), on a ragged 40×72 tile and in silu / k5 / identity /
    none modes; as ``fused_inverted_residual`` (h in float32) at the 14
    shapes; ``depthwise_conv2d(force="cuda")`` at k 3 and 5, float32 and
-   bfloat16, stride 1 and 2, ragged.
+   bfloat16, stride 1 and 2, ragged, at the b5 encoder's channel classes
+   and on a misaligned view (the plain-load staging).
 10. The rest of single-model serving (the third main path, whose NHWC
    launches are counted): ``TorchInference(fused_decoder="nhwc")`` at bs
    1, 4, 32 and 128 against the plain engine, 14 launches of each NHWC
@@ -51,11 +55,19 @@ Phases (each raises on failure, so the script exits non-zero):
    32 and 128; the NHWC pair and kernel 3 per launch at the 14 fat shapes
    (bf16, bs 4) and the depthwise kernel at the b5 encoder's stride-1
    depthwise shapes (bs 16, 512², bf16) beside their bounds, plain
-   versions and, for the depthwise kernel, ``F.conv2d(groups=C)``; device
-   time by group and idle share of the nhwc route at bs 32 and 128.
+   versions and, for the depthwise kernel, ``F.conv2d(groups=C)``, both
+   also with the L2 cache emptied before each repetition, each shape's
+   share of its bound and the host time of one call of each; device time
+   by group and idle share of the nhwc route at bs 32 and 128.
 
 The last line is the device record; the line before it the card's name
-and power limit, and before that one JSON object describing the kernels.
+and power limit, and before that one JSON object describing the kernels
+(the contract's keys, plus ``tc_bound_ms`` and ``f32_bound_ms`` for every
+row, and for the depthwise kernel the cold-L2 times ``cold_ms`` /
+``library_cold_ms`` and the host time of a call ``host_ms`` /
+``library_host_ms``). ``bound_ms`` takes the rates of the kernel's own
+arithmetic: the tensor-core bound for the bf16 pass 1 of kernel 1, the
+float32 bound for the others.
 Imports nothing of JAX.
 """
 
@@ -86,6 +98,8 @@ AGREE_BF16 = 0.99
 # float32 FLOP/s on the CUDA cores (the kernels' arithmetic type)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TC_FLOP_PER_S = 989e12  # bf16 dense on the tensor cores: the bound of the 1x1 products
+L2_FLUSH_BYTES = 256 * 2**20  # written between repetitions to empty the 50 MB L2
 SOURCE = "deadtrees_tpu_torch/ops/csrc/fused_ir_chw.cu"
 REPLACES = {
     "fused_ir_chw_pass1": "deadtrees_tpu/ops/fused_mbconv.py:156",
@@ -128,9 +142,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int = 21, warmup: int = 3) -> float:
+SPIN_CYCLES = 1_000_000  # about 0.5 ms of GPU clock: covers a wrapper's host time
+
+
+def cuda_time_ms(fn, reps: int = 21, warmup: int = 3, flush=None) -> float:
     """Median device time of one ``fn()`` over ``reps`` calls, each between
-    its own pair of CUDA events."""
+    its own pair of CUDA events. Before each call the card is kept busy
+    outside the events by a spin of ``SPIN_CYCLES`` (with ``flush``, a large
+    CUDA byte tensor, after an overwrite of it that leaves the L2 cache
+    cold), so that the host's time in a short kernel's wrapper does not
+    open a gap between the events: 0.1 ms of spin left gaps of up to 0.04
+    ms in this script's process."""
     import torch
 
     for _ in range(warmup):
@@ -138,11 +160,30 @@ def cuda_time_ms(fn, reps: int = 21, warmup: int = 3) -> float:
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
     for start, end in events:
+        if flush is not None:
+            flush.fill_(1)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def host_ms_per_call(fn, calls: int = 200) -> float:
+    """Host time of one ``fn()`` (the wrapper's Python and the launch), ms:
+    ``calls`` calls while a spin keeps the card busy, so none waits on it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES * 40)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def max_err(a, b) -> float:
@@ -180,7 +221,7 @@ def phase_device():
         entry, spills = "?", ""
         for line in _build.ptxas_log(name).splitlines():
             m = re.search(
-                r"(pass\d_kernel|nhwc_p\d_kernel|dw_nhwc_kernel|augment_[a-z]+_kernel)"
+                r"(pass\d_(?:bf16_)?kernel|nhwc_p\d_kernel|dw_tile_kernel|augment_[a-z]+_kernel)"
                 r"(I\w*?E)?E", line)
             if m:
                 entry = f"{m.group(1)}<{(m.group(2) or '')[1:-1]}>"
@@ -490,25 +531,42 @@ def phase_server(path: Path):
 # ---------------------------------------------------------------------------
 
 
+def pass1_tiles(hh: int, ww: int, k: int, bf16: bool) -> int:
+    """psum rows of kernel 1's pass 1: its output tiles at this shape."""
+    from deadtrees_tpu_torch.ops import fused_mbconv as fm
+
+    lib = fm._kernels()
+    return (-(-hh // lib.fused_ir_chw_tile_size(k, int(bf16), 0))
+            * -(-ww // lib.fused_ir_chw_tile_size(k, int(bf16), 1)))
+
+
 def bounds(shape, fp, skip: str, itemsize: int):
-    """(bytes, flops) each pass must move / do at this shape."""
+    """(bytes, flops, 1x1-product flops) each pass must move / do at this
+    shape; the product flops are part of flops."""
     bsz, cin, hh, ww = shape
     hw = hh * ww
     cm = fp.w1.shape[1]
     cout = fp.w2.shape[1]
     k = fp.dw.shape[0]
-    tile = 16 - 2 * (k // 2)  # pass-1 output tile side (psum rows)
-    n_tiles = -(-hh // tile) * -(-ww // tile)
+    n_tiles = pass1_tiles(hh, ww, k, itemsize == 2)
     w1_bytes = 4 * (fp.w1.numel() + fp.b1.numel() + fp.dw.numel() + fp.b_dw.numel())
     p1_bytes = bsz * hw * (cin + cm) * itemsize + bsz * n_tiles * cm * 4 + w1_bytes
-    p1_flops = 2 * bsz * hw * (cin * cm + k * k * cm)
+    p1_mm = 2 * bsz * hw * cin * cm
+    p1_flops = p1_mm + 2 * bsz * hw * k * k * cm
     x_read = cin if skip != "none" else 0
     w2_bytes = 4 * (fp.w2.numel() + fp.b2.numel() + fp.sse_w.numel() + bsz * cm
                     + (fp.wsk.numel() + fp.bsk.numel() if skip == "conv" else 0))
     p2_bytes = bsz * hw * (cm + x_read + cout) * itemsize + w2_bytes
-    p2_flops = 2 * bsz * hw * (cm * cout + (cin * cout if skip == "conv" else 0)) \
-        + 5 * bsz * hw * cm
-    return (p1_bytes, p1_flops), (p2_bytes, p2_flops)
+    p2_mm = 2 * bsz * hw * (cm * cout + (cin * cout if skip == "conv" else 0))
+    p2_flops = p2_mm + 5 * bsz * hw * cm
+    return (p1_bytes, p1_flops, p1_mm), (p2_bytes, p2_flops, p2_mm)
+
+
+def tc_bound_ms(nbytes: float, flops: float, mm_flops: float) -> float:
+    """The tensor-core bound of a bf16 row: max(bytes / HBM rate, 1x1
+    products / bf16 tensor rate + the rest / float32 rate), ms."""
+    return max(nbytes / HBM_BYTES_PER_S,
+               mm_flops / TC_FLOP_PER_S + (flops - mm_flops) / F32_FLOP_PER_S) * 1e3
 
 
 def phase_timings(model, fused, plain, card: str):
@@ -535,11 +593,13 @@ def phase_timings(model, fused, plain, card: str):
             f"({bs * 1e3 / mf:.2f} vs {bs * 1e3 / mp:.2f} img/s)")
 
     log(f"kernel time per launch at the flagship shapes (bf16, bs 4, CUDA events, "
-        f"median of 21) on {card}; bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, "
-        f"f32 FLOPs / {F32_FLOP_PER_S:.3g} FLOP/s)")
+        f"median of 21) on {card}; f32 bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, "
+        f"f32 FLOPs / {F32_FLOP_PER_S:.3g} FLOP/s); tc bound = max(bytes / "
+        f"{HBM_BYTES_PER_S:.3g} B/s, 1x1 FLOPs / {TC_FLOP_PER_S:.3g} + the rest / "
+        f"{F32_FLOP_PER_S:.3g} FLOP/s); bound = the tc bound for pass 1 (bf16 products "
+        "on the tensor cores), the f32 bound for pass 2; share = bound / time")
     gen = torch.Generator().manual_seed(SEED + 4)
-    tot = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-               "ops_ms": 0.0} for n in REPLACES}
+    tot = {n: {} for n in REPLACES}
     for name, i, shape, fp in flagship_block_shapes(model, 4):
         x = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
         skip = "conv" if fp.wsk is not None else "identity"
@@ -553,25 +613,25 @@ def phase_timings(model, fused, plain, card: str):
         }
         b1, b2 = bounds(shape, fp, skip, 2)
         parts = []
-        for kname, (kern, ref), (nbytes, flops) in zip(rows, rows.values(), (b1, b2)):
+        for kname, (kern, ref), (nbytes, flops, mm) in zip(rows, rows.values(), (b1, b2)):
             ms = cuda_time_ms(kern)
             pms = cuda_time_ms(ref)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = flops / F32_FLOP_PER_S * 1e3
-            bound = max(bytes_ms, ops_ms)
-            t = tot[kname]
-            t["ms"] += ms
-            t["plain_ms"] += pms
-            t["bound_ms"] += bound
-            t["bytes_ms"] += bytes_ms
-            t["ops_ms"] += ops_ms
+            tensor_cores = kname == "fused_ir_chw_pass1"  # bf16 x: the products on the tensor cores
+            bound, by = _add_time(tot[kname], ms, pms, nbytes, flops, mm_flops=mm,
+                                  tensor_cores=tensor_cores)
+            other, other_name = ((max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3,
+                                  "f32 bound") if tensor_cores
+                                 else (tc_bound_ms(nbytes, flops, mm), "tc bound"))
             parts.append(f"{kname[-5:]} {ms:.4f} ms (plain {pms:.4f}, bound {bound:.4f} "
-                         f"{'bytes' if bytes_ms >= ops_ms else 'ops'})")
+                         f"{by}, share {bound / ms:.1%}; {other_name} {other:.4f}, share "
+                         f"{other / ms:.1%})")
         log(f"  {name}.conv{i + 1} {tuple(shape[1:])}: " + "; ".join(parts))
     for kname, t in tot.items():
         log(f"  {kname}: one forward's 22 launches {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"(bytes {t['bytes_ms']:.4f}, ops {t['ops_ms']:.4f})")
+            f"(bytes {t['bytes_ms']:.4f}, ops {t['ops_ms']:.4f}), share "
+            f"{t['bound_ms'] / t['ms']:.1%}; f32 bound {t['f32_bound_ms']:.4f} ms, tc bound "
+            f"{t['tc_bound_ms']:.4f} ms")
     return tot
 
 
@@ -580,20 +640,31 @@ def phase_timings(model, fused, plain, card: str):
 # ---------------------------------------------------------------------------
 
 
+# the port's kernels by name prefix (csrc/*.cu), so that a variant or a
+# renamed kernel of the same family stays in its group
+PORT_KERNELS = (("pass1_", "fused pass 1"), ("pass2_", "fused pass 2"),
+                ("nhwc_p1_", "NHWC pass 1"), ("nhwc_p2_", "NHWC pass 2"),
+                ("dw_", "depthwise kernel"), ("augment_", "augment kernel"))
+
+
+def port_kernel_group(name: str):
+    """The group of a port kernel from its (demangled) profiler name, or
+    None for a kernel of another library."""
+    head = re.split(r"[<(]", name.replace("(anonymous namespace)::", ""), maxsplit=1)[0]
+    base = head.split("::")[-1].split()[-1:]
+    for prefix, group in PORT_KERNELS:
+        if base and base[0].startswith(prefix):
+            return group
+    return None
+
+
 def _kernel_group(event) -> str:
     name = event.get("name", "")
     if event.get("cat") != "kernel":
         return "copies"
-    if "pass1_kernel" in name:
-        return "fused pass 1"
-    if "pass2_kernel" in name:
-        return "fused pass 2"
-    if "nhwc_p1_kernel" in name:
-        return "NHWC pass 1"
-    if "nhwc_p2_kernel" in name:
-        return "NHWC pass 2"
-    if "dw_nhwc_kernel" in name:
-        return "depthwise kernel"
+    group = port_kernel_group(name)
+    if group is not None:
+        return group
     low = name.lower()
     if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "cutlass", "winograd")):
         return "conv/GEMM library"
@@ -765,11 +836,18 @@ def phase_nhwc_kernels(model, errs):
     log("depthwise kernel vs plain")
     for shape, k, strides in (((2, 64, 64, 32), 3, 1), ((2, 64, 64, 32), 5, 1),
                               ((2, 64, 64, 48), 3, 2), ((2, 64, 64, 48), 5, 2),
-                              ((2, 45, 31, 40), 3, 1), ((3, 37, 53, 24), 5, 2)):
+                              ((2, 45, 31, 40), 3, 1), ((3, 37, 53, 24), 5, 2),
+                              ((2, 64, 64, 240), 3, 1), ((1, 32, 32, 1056), 5, 1),
+                              ((1, 16, 16, 3072), 3, 1), ((2, 33, 35, 240), 5, 2)):
         x32 = torch.randn(shape, generator=gen).cuda()
         kern = torch.randn((k, k, 1, shape[-1]), generator=gen).cuda()
         for x in (x32, x32.to(torch.bfloat16)):
             check_dw_case(f"{shape} k{k} stride {strides}", x, kern, strides, errs)
+    shape, n = (2, 20, 24, 32), 2 * 20 * 24 * 32
+    for dtype in (torch.float32, torch.bfloat16):  # 16-byte misaligned: plain-load staging
+        x = torch.randn((n + 1,), generator=gen).cuda().to(dtype)[1:].view(shape)
+        kern = torch.randn((3, 3, 1, 32), generator=gen).cuda()
+        check_dw_case(f"{shape} k3 misaligned view", x, kern, 1, errs)
 
 
 # ---------------------------------------------------------------------------
@@ -898,8 +976,8 @@ def encoder_dw_shapes(model, bsz: int, img: int = IMG):
 
 
 def nhwc_bounds(shape, fp, skip: str, itemsize: int, h_itemsize: int):
-    """(bytes, flops) of each NHWC pass: the CHW formula with h's item
-    size as a parameter."""
+    """(bytes, flops, 1x1-product flops) of each NHWC pass: the CHW
+    formula with h's item size as a parameter."""
     bsz, hh, ww, cin = shape
     hw = hh * ww
     cm = fp.w1.shape[1]
@@ -909,24 +987,32 @@ def nhwc_bounds(shape, fp, skip: str, itemsize: int, h_itemsize: int):
     n_tiles = -(-hh // tile) * -(-ww // tile)
     w1_bytes = 4 * (fp.w1.numel() + fp.b1.numel() + fp.dw.numel() + fp.b_dw.numel())
     p1_bytes = bsz * hw * (cin * itemsize + cm * h_itemsize) + bsz * n_tiles * cm * 4 + w1_bytes
-    p1_flops = 2 * bsz * hw * (cin * cm + k * k * cm)
+    p1_mm = 2 * bsz * hw * cin * cm
+    p1_flops = p1_mm + 2 * bsz * hw * k * k * cm
     x_read = cin if skip != "none" else 0
     w2_bytes = 4 * (fp.w2.numel() + fp.b2.numel() + fp.sse_w.numel() + bsz * cm
                     + (fp.wsk.numel() + fp.bsk.numel() if skip == "conv" else 0))
     p2_bytes = bsz * hw * (cm * h_itemsize + (x_read + cout) * itemsize) + w2_bytes
-    p2_flops = 2 * bsz * hw * (cm * cout + (cin * cout if skip == "conv" else 0)) \
-        + 5 * bsz * hw * cm
-    return (p1_bytes, p1_flops), (p2_bytes, p2_flops)
+    p2_mm = 2 * bsz * hw * (cm * cout + (cin * cout if skip == "conv" else 0))
+    p2_flops = p2_mm + 5 * bsz * hw * cm
+    return (p1_bytes, p1_flops, p1_mm), (p2_bytes, p2_flops, p2_mm)
 
 
-def _add_time(t, ms, pms, nbytes, flops, mult=1):
+def _add_time(t, ms, pms, nbytes, flops, mult=1, mm_flops=0, tensor_cores=False):
+    """Add one shape's times and bounds (``mult`` launches of it) to the
+    row ``t``; returns (its bound in ms, what bounds it). The bound takes
+    the rates of the kernel's arithmetic: everything in float32 on the CUDA
+    cores, or with ``tensor_cores`` the 1x1 products at the bf16 tensor
+    rate; ``f32_bound_ms`` and ``tc_bound_ms`` keep both."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOP_PER_S * 1e3
-    t["ms"] += ms * mult
-    t["plain_ms"] += pms * mult
-    t["bound_ms"] += max(bytes_ms, ops_ms) * mult
-    t["bytes_ms"] += bytes_ms * mult
-    t["ops_ms"] += ops_ms * mult
+    f32_ops_ms = flops / F32_FLOP_PER_S * 1e3
+    tc_ops_ms = (mm_flops / TC_FLOP_PER_S + (flops - mm_flops) / F32_FLOP_PER_S) * 1e3
+    ops_ms = tc_ops_ms if tensor_cores else f32_ops_ms
+    for key, val in (("ms", ms), ("plain_ms", pms), ("bound_ms", max(bytes_ms, ops_ms)),
+                     ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+                     ("f32_bound_ms", max(bytes_ms, f32_ops_ms)),
+                     ("tc_bound_ms", max(bytes_ms, tc_ops_ms))):
+        t[key] = t.get(key, 0.0) + val * mult
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "ops"
 
 
@@ -971,8 +1057,7 @@ def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
         "(kernel 3)")
     gen = torch.Generator().manual_seed(SEED + 15)
     names = FAT + K3
-    tot = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-           for n in names + (DW,)}
+    tot = {n: {} for n in names + (DW,)}
     for name, i, shape, fp in fat_block_shapes(model, 4):
         x = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
         skip = "conv" if fp.wsk is not None else "identity"
@@ -989,9 +1074,9 @@ def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
                  lambda: fc.nhwc_pass2_reference(h, x, gate, fp, skip=skip)),
             )
             b1, b2 = nhwc_bounds(shape, fp, skip, 2, 4 if kernel3 else 2)
-            for (kname, kern, ref), (nbytes, flops) in zip(rows, (b1, b2)):
+            for (kname, kern, ref), (nbytes, flops, mm) in zip(rows, (b1, b2)):
                 ms, pms = cuda_time_ms(kern), cuda_time_ms(ref)
-                bound, by = _add_time(tot[kname], ms, pms, nbytes, flops)
+                bound, by = _add_time(tot[kname], ms, pms, nbytes, flops, mm_flops=mm)
                 parts.append(f"{'k3' if kernel3 else 'k2'} p{kname[-1]} {ms:.4f} "
                              f"(plain {pms:.4f}, bound {bound:.4f} {by})")
         log(f"  {name}.conv{i + 1} {tuple(shape[1:])}: " + "; ".join(parts))
@@ -999,13 +1084,16 @@ def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
         t = tot[kname]
         log(f"  {kname}: one forward's {FAT_BLOCKS} launches {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes "
-            f"{t['bytes_ms']:.4f}, ops {t['ops_ms']:.4f})")
+            f"{t['bytes_ms']:.4f}, ops {t['ops_ms']:.4f}), tc bound {t['tc_bound_ms']:.4f} ms")
 
     shapes = encoder_dw_shapes(model, TRAIN_BS)
     log(f"depthwise kernel at the b5 encoder's {sum(shapes.values())} stride-1 depthwise "
         f"convs ({len(shapes)} shapes, bs {TRAIN_BS}, {IMG}², bf16; CUDA events, median "
-        f"of 21) on {card}; library = F.conv2d(groups=C) on the same tensor")
-    lib_ms = 0.0
+        f"of 21) on {card}; library = F.conv2d(groups=C) on the same tensor; cold = "
+        f"L2 emptied by a {L2_FLUSH_BYTES >> 20} MiB write before each repetition "
+        "(outside the events)")
+    lib_ms = lib_cold = cold = host = lib_host = 0.0
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for (bsz, hh, ww, c, k), n in sorted(shapes.items(), key=lambda kv: -kv[0][1]):
         x = torch.randn((bsz, hh, ww, c), generator=gen).cuda().to(torch.bfloat16)
         kern = (torch.randn((k, k, 1, c), generator=gen) * 0.2).cuda()
@@ -1015,18 +1103,37 @@ def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
         ms = cuda_time_ms(lambda: dwm.depthwise_conv2d(x, kern, force="cuda"))
         pms = cuda_time_ms(lambda: dwm.depthwise_conv2d_reference(x, kern), reps=5)
         lms = cuda_time_ms(lambda: F.conv2d(x_lib, w_lib, padding=k // 2, groups=c))
+        cms = cuda_time_ms(lambda: dwm.depthwise_conv2d(x, kern, force="cuda"),
+                           flush=flush)
+        clms = cuda_time_ms(lambda: F.conv2d(x_lib, w_lib, padding=k // 2, groups=c),
+                            flush=flush)
         nbytes = 2 * x.numel() * 2 + kern.numel() * 4
         flops = 2 * k * k * x.numel()
         bound, by = _add_time(tot[DW], ms, pms, nbytes, flops, n)
         lib_ms += lms * n
-        log(f"  ({bsz}, {hh}, {ww}, {c}) k{k} x{n}: kernel {ms:.4f} ms, plain {pms:.4f}, "
-            f"library {lms:.4f}, bound {bound:.4f} {by}")
+        cold += cms * n
+        lib_cold += clms * n
+        plan = dwm.depthwise_tile_plan(hh, ww, c, k, 1, 2, batch=bsz,
+                                       sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        host += host_ms_per_call(lambda: dwm.depthwise_conv2d(x, kern, force="cuda")) * n
+        lib_host += host_ms_per_call(
+            lambda: F.conv2d(x_lib, w_lib, padding=k // 2, groups=c)) * n
+        log(f"  ({bsz}, {hh}, {ww}, {c}) k{k} x{n}: kernel {ms:.4f} ms (share of bound "
+            f"{bound / ms:.1%}; cold {cms:.4f}, share {bound / cms:.1%}), plain {pms:.4f}, "
+            f"library {lms:.4f} (cold {clms:.4f}), bound {bound:.4f} {by}; tile "
+            f"{plan.th}x{plan.tw}x{plan.cbv * plan.v} ch, {plan.threads} threads, "
+            f"{plan.smem_bytes} B, grid {plan.grid}")
         del x, x_lib
+    del flush
     t = tot[DW]
-    t["library_ms"] = lib_ms
-    log(f"  {DW}: the encoder's stride-1 depthwise convs {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, library {lib_ms:.4f} ms, bound {t['bound_ms']:.4f} ms "
-        f"(bytes {t['bytes_ms']:.4f}, ops {t['ops_ms']:.4f})")
+    t.update(library_ms=lib_ms, cold_ms=cold, library_cold_ms=lib_cold, host_ms=host,
+             library_host_ms=lib_host)
+    log(f"  {DW}: the encoder's stride-1 depthwise convs {t['ms']:.4f} ms (cold "
+        f"{cold:.4f}), plain {t['plain_ms']:.4f} ms, library {lib_ms:.4f} ms (cold "
+        f"{lib_cold:.4f}), bound {t['bound_ms']:.4f} ms (bytes {t['bytes_ms']:.4f}, ops "
+        f"{t['ops_ms']:.4f}); share of bound {t['bound_ms'] / t['ms']:.1%} (cold "
+        f"{t['bound_ms'] / cold:.1%}); host time of the 35 calls {host:.4f} ms, of the "
+        f"library's {lib_host:.4f} ms (mean of 200 calls a shape, card kept busy)")
     torch.cuda.empty_cache()
     return tot
 
@@ -1246,8 +1353,9 @@ def _train_group(event, launched_in) -> str:
     low = name.lower()
     if event.get("cat") != "kernel":
         return "copies"
-    if "augment_" in name:
-        return "augment kernel"
+    group = port_kernel_group(name)
+    if group is not None:
+        return group
     if launched_in == "edt":
         return "EDT"
     if "multi_tensor_apply" in low or "foreach" in low:
@@ -1481,11 +1589,14 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
-            "library_ms": None,
+            "library_ms": None, "tc_bound_ms": t["tc_bound_ms"],
+            "f32_bound_ms": t["f32_bound_ms"],
         })
     kernels.append({k: augment_row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
         "bound_ms", "bound_by", "library_ms")})
+    # no products: the same bound
+    kernels[-1]["tc_bound_ms"] = kernels[-1]["f32_bound_ms"] = augment_row["bound_ms"]
     rows = [(name, NHWC_SOURCE, NHWC_REPLACES[name]) for name in NHWC_REPLACES]
     for name, source, replaces in rows + [(DW, DW_SOURCE, DW_REPLACES)]:
         t = nhwc_tot[name]
@@ -1494,8 +1605,12 @@ def main() -> int:
             "launches": nhwc_counts[name], "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
-            "library_ms": t.get("library_ms"),
+            "library_ms": t.get("library_ms"), "tc_bound_ms": t["tc_bound_ms"],
+            "f32_bound_ms": t["f32_bound_ms"],
         })
+        if name == DW:
+            kernels[-1].update({k: t[k] for k in ("cold_ms", "library_cold_ms", "host_ms",
+                                                   "library_host_ms")})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

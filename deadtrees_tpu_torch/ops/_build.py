@@ -6,10 +6,13 @@ shared library with a plain C interface, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
 
-The library name carries a hash of the source, so an edited kernel is
+The library name carries a hash of the source and of the ``csrc/*.cuh``
+headers, so an edited kernel is
 rebuilt and an unchanged one is reused. ``build_all`` starts one ``nvcc``
-per source, all at once. Nothing here runs at import time: importing the
-package needs no CUDA toolkit.
+per source, all at once. A variant of a source built with preprocessor
+macros (``defines``, e.g. an instrumented build for a probe) is a library
+of its own beside the plain one. Nothing here runs at import time:
+importing the package needs no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -51,51 +54,66 @@ def _nvcc() -> str:
     )
 
 
-def _target(name: str) -> Path:
+def _stem(name: str, defines: Sequence[str] = ()) -> str:
+    """The library's name: the source's, and its macros for a variant."""
+    return "-".join((name, *(d.lower() for d in defines)))
+
+
+def _flags(defines: Sequence[str] = ()) -> tuple:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def _target(name: str, defines: Sequence[str] = ()) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include a header
+        digest.update(header.read_bytes())
+    digest.update(" ".join(_flags(defines)).encode())
+    return BUILD_DIR / f"{_stem(name, defines)}-{digest.hexdigest()[:12]}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines: Sequence[str] = ()):
     """Start nvcc for one source; returns (process, tmp path, target)."""
-    target = _target(name)
+    target = _target(name, defines)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
     return proc, tmp, target
 
 
-def build_all(names: List[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
-    """Compile every missing library in parallel and load all of them.
-    Raises with nvcc's output when a build fails."""
+def build_all(names: List[str] = SOURCES, defines: Sequence[str] = ()) -> Dict[str, ctypes.CDLL]:
+    """Compile every missing library in parallel (each source with the
+    macros ``defines``) and load all of them. Raises with nvcc's output
+    when a build fails."""
+    defines = tuple(defines)
     with _lock:
         pending = {}
         t0 = time.perf_counter()
         for name in names:
-            if name not in _libs and not _target(name).exists():
-                pending[name] = _start(name)
+            if _stem(name, defines) not in _libs and not _target(name, defines).exists():
+                pending[name] = _start(name, defines)
         for name, (proc, tmp, target) in pending.items():
             log, _ = proc.communicate()
-            (BUILD_DIR / f"{name}.log").write_text(log)
+            (BUILD_DIR / f"{_stem(name, defines)}.log").write_text(log)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
             os.replace(tmp, target)
-            build_seconds[name] = time.perf_counter() - t0
+            build_seconds[_stem(name, defines)] = time.perf_counter() - t0
         for name in names:
-            if name not in _libs:
-                _libs[name] = ctypes.CDLL(str(_target(name)))
-        return {name: _libs[name] for name in names}
+            stem = _stem(name, defines)
+            if stem not in _libs:
+                _libs[stem] = ctypes.CDLL(str(_target(name, defines)))
+        return {name: _libs[_stem(name, defines)] for name in names}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    lib = _libs.get(name)
-    return lib if lib is not None else build_all([name])[name]
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built with the macros
+    ``defines``), built on first use."""
+    lib = _libs.get(_stem(name, defines))
+    return lib if lib is not None else build_all([name], defines)[name]
 
 
 def ptxas_log(name: str) -> str:

@@ -19,8 +19,29 @@
 // bound by operations whenever it runs on the CUDA cores (67 TFLOP/s f32),
 // and by bytes only for the thin 512^2 cells.
 //
-// What this simple design does: every multiply-add runs in float32 on the
-// CUDA cores, from shared-memory tiles. Pass 1 takes one block per
+// bf16 pass 1 (`pass1_bf16_kernel`, the served route): the 1x1 expand runs
+// on the tensor cores (tc_expand.cuh: mma.sync bf16 with float32
+// accumulation, W1 split into bf16 hi + lo at fold time, so the product
+// keeps float32 accuracy). One block of 16 warps per (8 x 32 output tile, 64
+// mid channels, image). The haloed x tile (8 + 2P rows x 48 columns: a TMA
+// box must start at a multiple of 16 bytes in its inner dimension, so it
+// starts 8 columns left of the tile and covers the P + 32 + P columns the
+// conv reads) comes in chunks of 32 channels through a 3-stage ring: one
+// thread issues a 4-D TMA load of the CHW tensor (signed origin; the out-of-
+// image part is zero-filled) and a bulk copy of the chunk's packed weights,
+// completing on the stage's mbarrier, while the warps run the product on the
+// chunks that have arrived. TMA needs W % 8 == 0 (16-byte row strides) and a
+// 16-byte aligned x; other shapes take the same kernel with a plain-load
+// staging variant (one stage, loads by all threads), chosen by template.
+// Then y = act(acc + b1), zero at every row and column outside the image,
+// goes to shared memory as float32 (over the emptied ring), the depthwise
+// conv runs one output pixel and half of the channels a thread (activations
+// with the fast multiply, exponential and divide), h is rounded to bf16 into
+// a shared tile and written in whole 32-pixel rows with 16-byte stores, and
+// the cSE partial sums keep the float32 path's fixed order.
+//
+// The float32 path (`pass1_kernel`, float32 x): every multiply-add runs in
+// float32 on the CUDA cores, from shared-memory tiles. Pass 1 takes one block per
 // (output tile, 64 or 32 mid channels, image); the output tile is 14x14
 // (k=3) or 12x12 (k=5), so that its haloed tile is 16x16 pixels, one a
 // thread.
@@ -32,16 +53,24 @@
 // repeat exactly). Pass 2 takes one block per (128 pixels, 32 output
 // channels, image).
 //
-// What it leaves for later work: the tensor cores (wgmma on bf16 tiles of
-// the 1x1 convolutions), TMA loads, the halo recompute of pass 1 (the
-// expand runs on 16x16 pixels for a 14x14 output tile), x read once per
-// 64 mid channels in pass 1 and h once per 32 output channels in pass 2,
-// and the launch count per block (two kernels plus the small gate ops,
-// 22 times per forward).
+// What it leaves for later work: wgmma in place of mma.sync (a warpgroup
+// product from shared memory, the card's full tensor rate), the tensor
+// cores in pass 2, the halo recompute of pass 1 (the bf16 expand covers
+// 512 (k = 3) or 576 (k = 5) pixels a channel for an 8 x 32 output tile,
+// of which the conv reads 340 or 432: the 16-byte box origin stages 16
+// columns where 2P would do, and the pixels are padded to whole n8 tiles
+// of the 8 warps), x read once per 64 mid
+// channels in pass 1 and h once per 32 output channels in pass 2, and the
+// launch count per block (two kernels plus the small gate ops, 22 times
+// per forward).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <string.h>
+
+#include "tc_expand.cuh"
 
 namespace {
 
@@ -267,6 +296,329 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 pass 1: the expand on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kThreadsB = 512;  // bf16 pass-1 threads a block: 16 warps
+constexpr int kOtH = 8;         // bf16 pass-1 output tile rows
+constexpr int kOtW = 32;        // and columns
+constexpr int kPixB = kOtH * kOtW;  // output pixels a tile
+constexpr int kXOff = 8;    // columns staged left of the tile: a TMA box starts
+                            // at a multiple of 16 bytes in its inner dimension
+constexpr int kBoxW = 48;   // staged columns: kXOff + kOtW + kXOff >= P + 32 + P
+constexpr int kStages = 3;  // chunks in flight (TMA variant)
+constexpr int kHalves = kThreadsB / kPixB;  // the depthwise conv splits the channels
+static_assert(tc::kCmb % (kHalves * 8) == 0, "whole groups of 8 channels a half");
+
+// The hard swish and silu of the bf16 pass 1: the same functions with a
+// multiply by 1/6 and the fast exponential and divide, a few ulp from
+// act() (h is rounded to bf16 after them).
+template <int ACT>
+__device__ __forceinline__ float act_fast(float v) {
+  if (ACT == 0) return v * fminf(fmaxf(v + 3.f, 0.f), 6.f) * (1.f / 6.f);
+  return __fdividef(v, 1.f + __expf(-v));
+}
+
+// Shared-memory plan of the bf16 pass 1 for a k x k depthwise conv. The
+// ring of x and W chunks is overlaid, once the product is done, by y.
+template <int K>
+struct Bf16Tile {
+  static constexpr int P = K / 2;
+  static constexpr int HH = kOtH + 2 * P;         // staged rows
+  static constexpr int NPIX = HH * kBoxW;         // staged pixels a channel
+  static constexpr int NT = (NPIX + 7) / 8;       // n8 tiles
+  static constexpr int NTW = (NT + 7) / 8;        // n8 tiles a warp (8 warps along N)
+  static constexpr int NPAD = NTW * 8 * 8;        // pixels the product covers
+  static constexpr int XBYTES = tc::kKc * NPIX * 2;  // one chunk of x (a TMA box)
+  static constexpr int YS = NPAD + 8;             // y row stride in floats (bank spread)
+  static constexpr int RING = kStages * (XBYTES + tc::kWChunkBytes);
+  static constexpr int YBYTES = tc::kCmb * YS * 4;
+  static constexpr int U = RING > YBYTES ? RING : YBYTES;
+  static constexpr int OFF_HS = (U + 127) / 128 * 128;  // h tile, bf16 [64][8 x 32]
+  static constexpr int OFF_DWS = OFF_HS + tc::kCmb * kPixB * 2;
+  static constexpr int OFF_B1 = OFF_DWS + tc::kCmb * K * K * 4;
+  static constexpr int OFF_BDW = OFF_B1 + tc::kCmb * 4;
+  static constexpr int OFF_RED = OFF_BDW + tc::kCmb * 4;
+  static constexpr int OFF_BAR = OFF_RED + (kThreadsB / 32) * tc::kCmb * 4;
+  static constexpr int SMEM = OFF_BAR + kStages * 8;
+  static_assert(XBYTES % 128 == 0, "TMA destinations are 128-byte aligned");
+  static_assert(NPIX * 2 % 16 == 0, "ldmatrix rows are 16-byte aligned");
+  // the product reads NPAD pixels of a channel: past the last channel of
+  // the last stage it reads into the W ring, never past the allocation
+  static_assert((NPAD - NPIX) * 2 <= kStages * tc::kWChunkBytes, "padding stays in smem");
+};
+
+// The phase clock of the bf16 pass 1, compiled in only with
+// -DDT_PASS1_PROBE (tools/probe_pass1.py): thread 0 of each block reads
+// clock64() at the start and after each phase, and adds the cycles it
+// waited on the chunks' mbarriers; the block writes kProbeSlots numbers to
+// g_pass1_probe[block]. Without the macro nothing of it is compiled.
+#ifdef DT_PASS1_PROBE
+constexpr int kProbeSlots = 5;  // stage + expand, y write, depthwise + psum, h store, x waits
+__device__ long long* g_pass1_probe = nullptr;
+#endif
+
+// One thread: chunk c's x box (TMA) and packed W chunk (bulk copy) into
+// stage c % kStages, completing on that stage's mbarrier.
+template <typename L>
+__device__ __forceinline__ void issue_chunk(const CUtensorMap* tmap, __nv_bfloat16* xring,
+                                            __nv_bfloat16* wring,
+                                            const __nv_bfloat16* wblk, uint64_t* bars,
+                                            int c, int x0, int y0, int b) {
+  const int s = c % kStages;
+  tc::mbar_expect_tx(&bars[s], L::XBYTES + tc::kWChunkBytes);
+  tc::tma_load_4d(xring + s * (L::XBYTES / 2), tmap, x0, y0, c * tc::kKc, b, &bars[s]);
+  tc::bulk_load(wring + s * tc::kWChunkElems, wblk + (size_t)c * tc::kWChunkElems,
+                tc::kWChunkBytes, &bars[s]);
+}
+
+// One block of 16 warps per (8 x 32 output tile, 64 mid channels, image).
+// Warp w owns m16 tiles (w / 8) * 2 + {0, 1} and n8 tiles (w % 8) * NTW + j
+// of the product; a warp whose m16 tiles all lie past C_mid skips it. The
+// depthwise conv takes one output pixel and half of the channels a thread.
+// TMA: the ring of chunks fed by TMA and bulk copies (W % 8 == 0, x
+// 16-byte aligned); else one stage filled by plain loads.
+template <int K, int ACT, bool TMA>
+__global__ void __launch_bounds__(kThreadsB, 1)
+    pass1_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
+                      const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ wpk,
+                      const float* __restrict__ b1, const float* __restrict__ dw,
+                      const float* __restrict__ bdw, __nv_bfloat16* __restrict__ h,
+                      float* __restrict__ psum, int cin, int cm, int height,
+                      int width, int tiles_w) {
+  using L = Bf16Tile<K>;
+  constexpr int P = L::P;
+  constexpr int NTW = L::NTW;
+  constexpr int CMB = tc::kCmb;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* xring = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* wring = reinterpret_cast<__nv_bfloat16*>(smem + kStages * L::XBYTES);
+  float* ys = reinterpret_cast<float*>(smem);  // [CMB][YS], after the product
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_HS);
+  float* dws = reinterpret_cast<float*>(smem + L::OFF_DWS);
+  float* b1s = reinterpret_cast<float*>(smem + L::OFF_B1);
+  float* bdws = reinterpret_cast<float*>(smem + L::OFF_BDW);
+  float* red = reinterpret_cast<float*>(smem + L::OFF_RED);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 3;
+  const int wn = warp & 7;
+  const int tile = blockIdx.x;
+  const int oy0 = (tile / tiles_w) * kOtH;
+  const int ox0 = (tile % tiles_w) * kOtW;
+  const int y0 = oy0 - P;  // staged tile origin
+  const int x0 = ox0 - kXOff;
+  const int mblk = blockIdx.y;
+  const int m0 = mblk * CMB;
+  const int b = blockIdx.z;
+  const int nchunks = (cin + tc::kKc - 1) / tc::kKc;
+  const __nv_bfloat16* wblk = wpk + (size_t)mblk * nchunks * tc::kWChunkElems;
+  const size_t plane = (size_t)height * width;
+  const bool warp_live = m0 + wm * 32 < cm;  // warp-uniform: its m16 tiles hold a channel
+#ifdef DT_PASS1_PROBE
+  long long stamp[kProbeSlots] = {};
+  long long waited = 0;
+  if (tid == 0) stamp[0] = clock64();
+#endif
+
+  for (int i = tid; i < CMB * K * K; i += kThreadsB) {
+    const int m = i / (K * K);
+    const int j = i - m * (K * K);
+    dws[i] = (m0 + m < cm) ? dw[(size_t)j * cm + m0 + m] : 0.f;
+  }
+  if (tid < CMB) {
+    b1s[tid] = (m0 + tid < cm) ? b1[m0 + tid] : 0.f;
+    bdws[tid] = (m0 + tid < cm) ? bdw[m0 + tid] : 0.f;
+  }
+
+  float acc[2][NTW][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  if constexpr (TMA) {
+    if (tid == 0) {
+      for (int s = 0; s < kStages; ++s) tc::mbar_init(&bars[s], 1);
+      tc::mbar_fence_init();
+    }
+    __syncthreads();
+    // thread 0 issues chunk c's x box and W chunk into stage c % kStages
+    if (tid == 0)
+      for (int c = 0; c < kStages && c < nchunks; ++c)
+        issue_chunk<L>(&tmap, xring, wring, wblk, bars, c, x0, y0, b);
+    for (int c = 0; c < nchunks; ++c) {
+      const int s = c % kStages;
+#ifdef DT_PASS1_PROBE
+      const long long w0 = clock64();
+#endif
+      tc::mbar_wait(&bars[s], (c / kStages) & 1);
+#ifdef DT_PASS1_PROBE
+      if (tid == 0) waited += clock64() - w0;
+#endif
+      if (warp_live)
+        tc::expand_chunk<NTW>(xring + s * (L::XBYTES / 2), L::NPIX,
+                              wring + s * tc::kWChunkElems, acc, wm, wn, lane);
+      __syncthreads();  // every warp is done with stage s
+      if (tid == 0 && c + kStages < nchunks)
+        issue_chunk<L>(&tmap, xring, wring, wblk, bars, c + kStages, x0, y0, b);
+    }
+  } else {
+    for (int c = 0; c < nchunks; ++c) {
+      __syncthreads();  // the previous chunk is consumed
+      for (int i = tid; i < tc::kKc * L::NPIX; i += kThreadsB) {
+        const int ch = i / L::NPIX;
+        const int p = i - ch * L::NPIX;
+        const int py = p / kBoxW;
+        const int gy = y0 + py;
+        const int gx = x0 + p - py * kBoxW;
+        const int gc = c * tc::kKc + ch;
+        const bool in = gc < cin && gy >= 0 && gy < height && gx >= 0 && gx < width;
+        xring[i] = in ? x[((size_t)b * cin + gc) * plane + (size_t)gy * width + gx]
+                      : __float2bfloat16(0.f);
+      }
+      const uint4* wsrc = reinterpret_cast<const uint4*>(wblk + (size_t)c * tc::kWChunkElems);
+      uint4* wdst = reinterpret_cast<uint4*>(wring);
+      for (int i = tid; i < tc::kWChunkBytes / 16; i += kThreadsB) wdst[i] = wsrc[i];
+      __syncthreads();
+      if (warp_live) tc::expand_chunk<NTW>(xring, L::NPIX, wring, acc, wm, wn, lane);
+    }
+  }
+  __syncthreads();  // the ring is no longer read: y overlays it
+#ifdef DT_PASS1_PROBE
+  if (tid == 0) stamp[1] = clock64();
+#endif
+
+  // y = act(expand + b1), zero outside the image (rows AND columns): the
+  // depthwise conv's zero padding applies to y, not to x, so a halo pixel
+  // must not carry act(b1). A warp past C_mid writes nothing: the
+  // depthwise conv reads no channel of it.
+  if (warp_live) {
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = (wm * 2 + i) * 16 + hr * 8 + g;
+        const bool m_ok = m0 + m < cm;
+        const float bias = b1s[m];
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const int n = (wn * NTW + j) * 8 + 2 * t;  // even: n and n + 1 share a row
+          const int py = n / kBoxW;
+          const int gy = y0 + py;
+          const int gx = x0 + n - py * kBoxW;
+          const bool row_in = m_ok && gy >= 0 && gy < height;
+          float2 v;
+          v.x = (row_in && gx >= 0 && gx < width) ? act_fast<ACT>(acc[i][j][hr * 2] + bias)
+                                                  : 0.f;
+          v.y = (row_in && gx + 1 >= 0 && gx + 1 < width)
+                    ? act_fast<ACT>(acc[i][j][hr * 2 + 1] + bias)
+                    : 0.f;
+          *reinterpret_cast<float2*>(&ys[m * L::YS + n]) = v;
+        }
+      }
+    }
+  }
+  __syncthreads();
+#ifdef DT_PASS1_PROBE
+  if (tid == 0) stamp[2] = clock64();
+#endif
+
+  // depthwise k x k: thread tid takes output pixel tid % 256 and the
+  // channels of half tid / 256, kGroup at once, so that their tap chains
+  // and shuffle trees interleave; each channel's sums keep their order
+  // (taps row-major, then the warp's shuffle tree). Channels past mcount
+  // (y and weights zero) are computed and never read.
+  const int pix = tid % kPixB;
+  const int half = tid / kPixB;
+  const int oy = pix / kOtW;
+  const int ox = pix % kOtW;
+  const bool inside = oy0 + oy < height && ox0 + ox < width;
+  const int mcount = min(CMB, cm - m0);
+  constexpr int kGroup = 8;
+  constexpr int kPerHalf = CMB / kHalves;
+  for (int mg = half * kPerHalf; mg < min(mcount, (half + 1) * kPerHalf); mg += kGroup) {
+    float s[kGroup];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int m = mg + j;
+      const float* yq = ys + m * L::YS + oy * kBoxW + ox + kXOff - P;
+      float a = 0.f;
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx)
+          a = fmaf(yq[dy * kBoxW + dx], dws[m * K * K + dy * K + dx], a);
+      const float hv = inside ? act_fast<ACT>(a + bdws[m]) : 0.f;
+      hs[m * kPixB + pix] = __float2bfloat16(hv);
+      s[j] = hv;  // the float32 h, before rounding to bf16
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) s[j] += __shfl_down_sync(0xffffffffu, s[j], off);
+    if (lane == 0)
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) red[warp * CMB + mg + j] = s[j];
+  }
+  __syncthreads();
+  if (tid < mcount) {
+    // the 8 warps of the channel's half, in order
+    const int w0 = (tid / kPerHalf) * (kPixB / 32);
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kPixB / 32; ++w) s += red[(w0 + w) * CMB + tid];
+    psum[((size_t)b * gridDim.x + tile) * cm + m0 + tid] = s;
+  }
+#ifdef DT_PASS1_PROBE
+  if (tid == 0) stamp[3] = clock64();
+#endif
+
+  // h in whole tile rows
+  __nv_bfloat16* hb = h + ((size_t)b * cm + m0) * plane;
+  if constexpr (TMA) {
+    // W % 8 == 0: a run of 8 pixels (16 bytes) is all inside or all outside
+    constexpr int kRuns = kOtW / 8;  // 16-byte runs a tile row
+    for (int i = tid; i < mcount * kOtH * kRuns; i += kThreadsB) {
+      const int m = i / (kOtH * kRuns);
+      const int r = (i / kRuns) % kOtH;
+      const int q = i % kRuns;
+      const int ry = oy0 + r;
+      const int rx = ox0 + q * 8;
+      if (ry < height && rx < width)
+        *reinterpret_cast<uint4*>(hb + (size_t)m * plane + (size_t)ry * width + rx) =
+            *reinterpret_cast<const uint4*>(hs + m * kPixB + r * kOtW + q * 8);
+    }
+  } else {
+    for (int i = tid; i < mcount * kPixB; i += kThreadsB) {
+      const int m = i / kPixB;
+      const int p = i - m * kPixB;
+      const int ry = oy0 + p / kOtW;
+      const int rx = ox0 + p % kOtW;
+      if (ry < height && rx < width) hb[(size_t)m * plane + (size_t)ry * width + rx] = hs[i];
+    }
+  }
+#ifdef DT_PASS1_PROBE
+  __syncthreads();  // every thread's h stores are issued
+  if (tid == 0 && g_pass1_probe != nullptr) {
+    stamp[4] = clock64();
+    long long* out =
+        g_pass1_probe + (((size_t)b * gridDim.y + mblk) * gridDim.x + tile) * kProbeSlots;
+    for (int i = 0; i < 4; ++i) out[i] = stamp[i + 1] - stamp[i];
+    out[4] = waited;
+  }
+#endif
+}
+
 // skip: 0 none, 1 identity (cin == cout), 2 conv
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -414,6 +766,74 @@ void launch_pass1(const void* x, const void* w1, const void* b1,
                                     cm, height, width, stream);
 }
 
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// the library needs no -lcuda at link time
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+template <int K, int ACT, bool TMA>
+int launch_pass1_bf16(const void* x, const void* wpk, const void* b1, const void* dw,
+                      const void* bdw, void* h, void* psum, int batch, int cin, int cm,
+                      int height, int width, cudaStream_t stream) {
+  using L = Bf16Tile<K>;
+  static bool smem_allowed = false;  // once per instantiation
+  if (!smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(pass1_bf16_kernel<K, ACT, TMA>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               L::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_allowed = true;
+  }
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if constexpr (TMA) {
+    // x as a 4-D tensor (W, H, C_in, B), innermost first; one box is a
+    // chunk's haloed tile: 48 columns x HH rows x 32 channels
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)height, (cuuint64_t)cin,
+                                (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {(cuuint64_t)width * 2, (cuuint64_t)height * width * 2,
+                                   (cuuint64_t)cin * height * width * 2};
+    const cuuint32_t box[4] = {kBoxW, L::HH, tc::kKc, 1};
+    const cuuint32_t estr[4] = {1, 1, 1, 1};
+    const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                              dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles_w = (width + kOtW - 1) / kOtW;
+  const int tiles_h = (height + kOtH - 1) / kOtH;
+  const dim3 grid(tiles_h * tiles_w, (cm + tc::kCmb - 1) / tc::kCmb, batch);
+  pass1_bf16_kernel<K, ACT, TMA><<<grid, kThreadsB, L::SMEM, stream>>>(
+      map, static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wpk),
+      static_cast<const float*>(b1), static_cast<const float*>(dw),
+      static_cast<const float*>(bdw), static_cast<__nv_bfloat16*>(h),
+      static_cast<float*>(psum), cin, cm, height, width, tiles_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 void launch_pass2(const void* h, const void* x, const void* gate,
                   const void* sse_w, const void* sse_b, const void* w2,
@@ -435,33 +855,75 @@ void launch_pass2(const void* h, const void* x, const void* gate,
 
 extern "C" {
 
-// Side of the square pass-1 output tile for a k x k depthwise conv
-// (14 for k = 3, 12 for k = 5): psum has one row per tile.
-int fused_ir_chw_tile_size(int ksize) { return kSide - 2 * (ksize / 2); }
+// Rows (axis 0) or columns (axis 1) of the pass-1 output tile for a k x k
+// depthwise conv: 8 x 32 for bfloat16 x (the tensor-core kernel), 14 x 14
+// (k = 3) or 12 x 12 (k = 5) for float32 x. psum has one row per tile.
+int fused_ir_chw_tile_size(int ksize, int bf16, int axis) {
+  if (bf16) return axis == 0 ? kOtH : kOtW;
+  return kSide - 2 * (ksize / 2);
+}
+
+#ifdef DT_PASS1_PROBE
+// The probe build only: the bf16 pass 1 writes kProbeSlots int64 a block
+// (grid order: tile, then 64 mid channels, then image) to buf, or nothing
+// when buf is null. Returns a cudaError_t.
+int fused_ir_chw_probe(void* buf) {
+  long long* p = static_cast<long long*>(buf);
+  return static_cast<int>(cudaMemcpyToSymbol(g_pass1_probe, &p, sizeof(p)));
+}
+
+// Pixels of a channel that the bf16 product covers for a k x k conv (the
+// staged, haloed tile padded to whole n8 tiles a warp), and staged rows
+int fused_ir_chw_probe_geometry(int ksize, int what) {
+  if (ksize == 3) return what == 0 ? Bf16Tile<3>::NPAD : Bf16Tile<3>::HH;
+  return what == 0 ? Bf16Tile<5>::NPAD : Bf16Tile<5>::HH;
+}
+#endif
 
 // x (B, Cin, H, W) and h (B, Cm, H, W) in float32 (bf16 == 0) or bfloat16;
-// w1 (Cin, Cm), b1 (Cm), dw (k, k, Cm), bdw (Cm) float32;
-// psum (B, ceil(H/t) * ceil(W/t), Cm) float32, t = fused_ir_chw_tile_size(k).
-// act: 0 hard swish, 1 silu. Returns cudaGetLastError() after the launch.
-int fused_ir_chw_pass1(const void* x, const void* w1, const void* b1,
-                       const void* dw, const void* bdw, void* h, void* psum,
-                       int batch, int cin, int cm, int height, int width,
-                       int ksize, int act, int bf16, void* stream) {
+// b1 (Cm), dw (k, k, Cm), bdw (Cm) float32; psum (B, ceil(H/t) *
+// ceil(W/t), Cm) float32, t = fused_ir_chw_tile_size(k, bf16, axis). float32 x
+// reads w1 (Cin, Cm) float32; bfloat16 x reads w1_packed, W1 split into bf16
+// hi and lo in the product's order (ops/fused_mbconv.py `pack_w1`:
+// (ceil(Cm/64), ceil(Cin/32), 2, 2, 4, 32, 8), 16-byte aligned), and with
+// tma != 0 stages x by TMA (needs W % 8 == 0 and x 16-byte aligned), else
+// by plain loads. act: 0 hard swish, 1 silu. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for arguments it cannot take).
+int fused_ir_chw_pass1(const void* x, const void* w1, const void* w1_packed,
+                       const void* b1, const void* dw, const void* bdw, void* h,
+                       void* psum, int batch, int cin, int cm, int height,
+                       int width, int ksize, int act, int bf16, int tma,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DT_PASS1(T, K, A)                                                   \
-  launch_pass1<T, K, A>(x, w1, b1, dw, bdw, h, psum, batch, cin, cm, height, \
-                        width, s)
-  const int key = (bf16 ? 100 : 0) + ksize * 10 + act;
-  switch (key) {
-    case 30: DT_PASS1(float, 3, 0); break;
-    case 31: DT_PASS1(float, 3, 1); break;
-    case 50: DT_PASS1(float, 5, 0); break;
-    case 51: DT_PASS1(float, 5, 1); break;
-    case 130: DT_PASS1(__nv_bfloat16, 3, 0); break;
-    case 131: DT_PASS1(__nv_bfloat16, 3, 1); break;
-    case 150: DT_PASS1(__nv_bfloat16, 5, 0); break;
-    case 151: DT_PASS1(__nv_bfloat16, 5, 1); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if ((ksize != 3 && ksize != 5) || act < 0 || act > 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16) {
+    const bool aligned = reinterpret_cast<size_t>(x) % 16 == 0;
+    if (reinterpret_cast<size_t>(w1_packed) % 16 != 0 || (tma && (width % 8 != 0 || !aligned)))
+      return static_cast<int>(cudaErrorInvalidValue);
+#define DT_BF16(K, A, TMA)                                                            \
+  return launch_pass1_bf16<K, A, TMA>(x, w1_packed, b1, dw, bdw, h, psum, batch, cin, \
+                                      cm, height, width, s)
+    switch (ksize * 100 + act * 10 + (tma ? 1 : 0)) {
+      case 300: DT_BF16(3, 0, false);
+      case 301: DT_BF16(3, 0, true);
+      case 310: DT_BF16(3, 1, false);
+      case 311: DT_BF16(3, 1, true);
+      case 500: DT_BF16(5, 0, false);
+      case 501: DT_BF16(5, 0, true);
+      case 510: DT_BF16(5, 1, false);
+      default: DT_BF16(5, 1, true);
+    }
+#undef DT_BF16
+  }
+#define DT_PASS1(K, A)                                                          \
+  launch_pass1<float, K, A>(x, w1, b1, dw, bdw, h, psum, batch, cin, cm, height, \
+                            width, s)
+  switch (ksize * 10 + act) {
+    case 30: DT_PASS1(3, 0); break;
+    case 31: DT_PASS1(3, 1); break;
+    case 50: DT_PASS1(5, 0); break;
+    default: DT_PASS1(5, 1); break;
   }
 #undef DT_PASS1
   return static_cast<int>(cudaGetLastError());

@@ -43,7 +43,10 @@ SKIPS = ("auto", "identity", "conv", "none")
 
 
 class FoldedBlockParams(NamedTuple):
-    """BN-folded weights of one InvertedResidual (inference), float32."""
+    """BN-folded weights of one InvertedResidual (inference), float32;
+    ``w1_packed`` is W1 split into bf16 hi and lo for the tensor-core
+    pass 1 (:func:`pack_w1`), filled by :func:`fold_inverted_residual` and
+    computed by the wrapper when a hand-built tuple lacks it."""
 
     w1: torch.Tensor  # (C_in, C_mid) expand pointwise (folded bn)
     b1: torch.Tensor  # (C_mid,)
@@ -59,6 +62,40 @@ class FoldedBlockParams(NamedTuple):
     b2: torch.Tensor  # (C_out,)
     wsk: Optional[torch.Tensor]  # (C_in, C_out) skip conv (folded bn) or None
     bsk: Optional[torch.Tensor]
+    w1_packed: Optional[torch.Tensor] = None  # bf16, pack_w1(w1)
+
+
+# the tensor-core pass 1's blocking (csrc/tc_expand.cuh kCmb, kKc)
+PACK_MID = 64  # mid channels a block
+PACK_IN = 32  # input channels a chunk
+
+
+def split_w1(w1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W1 as bf16 hi = bf16(W1) and lo = bf16(W1 - hi): hi + lo is within
+    about 2^-16·|W1| of W1, so x·hi + x·lo keeps the float32 product's
+    accuracy for bf16 x."""
+    w = w1.float()
+    hi = w.to(torch.bfloat16)
+    return hi, (w - hi.float()).to(torch.bfloat16)
+
+
+def pack_w1(w1: torch.Tensor) -> torch.Tensor:
+    """W1 (C_in, C_mid) float32 → the bf16 operand of the tensor-core
+    pass 1, in the order the product reads it, zero-padded to whole
+    blocks: (ceil(C_mid/64), ceil(C_in/32), k16 step 2, [hi, lo], m16 tile
+    4, lane 32, 8). Lane l = 4g + t holds the mma.m16n8k16 A fragment of
+    its 16×16 tile of W1ᵀ: rows g, g+8 × columns 2t, 2t+1 in register
+    order (row g, row g+8) for columns 2t.., then the same for 2t+8.."""
+    cin, cm = w1.shape
+    mb, kc = -(-cm // PACK_MID), -(-cin // PACK_IN)
+    wt = torch.zeros((mb * PACK_MID, kc * PACK_IN), dtype=torch.float32, device=w1.device)
+    wt[:cm, :cin] = w1.float().t()
+    hl = torch.stack(split_w1(wt))  # (2, M, K)
+    # M = mb·64 + mt·16 + rh·8 + g; K = kc·32 + ks·16 + ch·8 + t·2 + e
+    hl = hl.reshape(2, mb, 4, 2, 8, kc, 2, 2, 4, 2)
+    # -> (mb, kc, ks, hl, mt, g, t, ch, rh, e)
+    return hl.permute(1, 5, 6, 0, 2, 4, 8, 7, 3, 9).reshape(
+        mb, kc, 2, 2, 4, 32, 8).contiguous()
 
 
 def fold_bn_into_conv(
@@ -108,7 +145,7 @@ def fold_inverted_residual(block: InvertedResidual) -> FoldedBlockParams:
         cse_w1=c(conv1x1(cse[1])), cse_b1=c(cse[1].bias),
         cse_w2=c(conv1x1(cse[3])), cse_b2=c(cse[3].bias),
         sse_w=c(conv1x1(sse[0])), sse_b=c(sse[0].bias),
-        w2=w2, b2=b2, wsk=wsk, bsk=bsk,
+        w2=w2, b2=b2, wsk=wsk, bsk=bsk, w1_packed=pack_w1(w1),
     )
 
 
@@ -221,19 +258,23 @@ _I = ctypes.c_int
 _lib = None
 
 
+def bind_kernels(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of ``csrc/fused_ir_chw.cu``."""
+    lib.fused_ir_chw_tile_size.argtypes = [_I, _I, _I]
+    lib.fused_ir_chw_tile_size.restype = _I
+    lib.fused_ir_chw_pass1.argtypes = [_P] * 8 + [_I] * 9 + [_P]
+    lib.fused_ir_chw_pass1.restype = _I
+    lib.fused_ir_chw_pass2.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+    lib.fused_ir_chw_pass2.restype = _I
+    return lib
+
+
 def _kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         from deadtrees_tpu_torch.ops import _build
 
-        lib = _build.load("fused_ir_chw")
-        lib.fused_ir_chw_tile_size.argtypes = [_I]
-        lib.fused_ir_chw_tile_size.restype = _I
-        lib.fused_ir_chw_pass1.argtypes = [_P] * 7 + [_I] * 8 + [_P]
-        lib.fused_ir_chw_pass1.restype = _I
-        lib.fused_ir_chw_pass2.argtypes = [_P] * 10 + [_I] * 7 + [_P]
-        lib.fused_ir_chw_pass2.restype = _I
-        _lib = lib
+        _lib = bind_kernels(_build.load("fused_ir_chw"))
     return _lib
 
 
@@ -245,10 +286,17 @@ def _cuda_check(x: torch.Tensor, fp: FoldedBlockParams) -> None:
     for name, t in fp._asdict().items():
         if t is None:
             continue
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+        dtype = torch.bfloat16 if name == "w1_packed" else torch.float32
+        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"folded {name} must be a contiguous float32 tensor on {x.device}"
+                f"folded {name} must be a contiguous {dtype} tensor on {x.device}"
             )
+    if fp.w1_packed is not None:
+        cin, cm = fp.w1.shape
+        want = (-(-cm // PACK_MID), -(-cin // PACK_IN), 2, 2, 4, 32, 8)
+        if tuple(fp.w1_packed.shape) != want:
+            raise ValueError(f"folded w1_packed has shape {tuple(fp.w1_packed.shape)}, "
+                             f"expected {want} (pack_w1(w1))")
 
 
 def _check_status(status: int, name: str) -> None:
@@ -260,10 +308,22 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def pass1_staging(x: torch.Tensor) -> Optional[str]:
+    """How the tensor-core pass 1 stages bf16 x: ``"tma"`` (W % 8 == 0 and
+    x 16-byte aligned: TMA needs 16-byte row strides) or ``"plain"``;
+    None for float32 x (the float32 kernel)."""
+    if x.dtype != torch.bfloat16:
+        return None
+    return "tma" if x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 else "plain"
+
+
 def chw_pass1(x, fp, *, activation="hswish", ksize=3):
     """Pass 1: (h in x's dtype, (B, n_tiles, C_mid) float32 partial sums).
     A CUDA tensor launches the kernel; a CPU tensor takes the plain
-    version."""
+    version. bf16 x runs the tensor-core kernel on ``fp.w1_packed``
+    (computed here when ``fp`` lacks it), staged by TMA when W % 8 == 0 and
+    x is 16-byte aligned, else by plain loads; float32 x runs the float32
+    kernel."""
     if x.device.type == "cpu":
         return chw_pass1_reference(x, fp, activation=activation, ksize=ksize)
     if x.device.type != "cuda":
@@ -272,16 +332,21 @@ def chw_pass1(x, fp, *, activation="hswish", ksize=3):
     lib = _kernels()
     bsz, cin, hh, ww = x.shape
     cm = fp.w1.shape[1]
-    tile = lib.fused_ir_chw_tile_size(ksize)
-    n_tiles = -(-hh // tile) * -(-ww // tile)
+    bf16 = x.dtype == torch.bfloat16
+    packed = None
+    if bf16:
+        packed = fp.w1_packed if fp.w1_packed is not None else pack_w1(fp.w1)
+    tma = pass1_staging(x) == "tma"
+    n_tiles = (-(-hh // lib.fused_ir_chw_tile_size(ksize, int(bf16), 0))
+               * -(-ww // lib.fused_ir_chw_tile_size(ksize, int(bf16), 1)))
     h = torch.empty((bsz, cm, hh, ww), dtype=x.dtype, device=x.device)
     psum = torch.empty((bsz, n_tiles, cm), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         status = lib.fused_ir_chw_pass1(
-            x.data_ptr(), fp.w1.data_ptr(), fp.b1.data_ptr(), fp.dw.data_ptr(),
-            fp.b_dw.data_ptr(), h.data_ptr(), psum.data_ptr(),
-            bsz, cin, cm, hh, ww, ksize, ACTIVATIONS.index(activation),
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), fp.w1.data_ptr(), _ptr(packed), fp.b1.data_ptr(),
+            fp.dw.data_ptr(), fp.b_dw.data_ptr(), h.data_ptr(), psum.data_ptr(),
+            bsz, cin, cm, hh, ww, ksize, ACTIVATIONS.index(activation), int(bf16),
+            int(tma), torch.cuda.current_stream().cuda_stream,
         )
     _check_status(status, "fused_ir_chw_pass1")
     LAUNCHES["fused_ir_chw_pass1"] += 1

@@ -161,5 +161,9 @@ def test_folded_block_nhwc_matches_jax_xla_block(pair):
 def test_jax_fold_is_what_the_kernel_reads():
     """The folded tensors the kernels take have the JAX package's
     orientation (output channel last), so one FoldedBlockParams layout
-    serves both packages."""
-    assert tfm.FoldedBlockParams._fields == jfm.FoldedBlockParams._fields
+    serves both packages: the JAX fields in JAX's order, then the port's
+    optional bf16 split of W1 for its tensor-core pass 1."""
+    n = len(jfm.FoldedBlockParams._fields)
+    assert tfm.FoldedBlockParams._fields[:n] == jfm.FoldedBlockParams._fields
+    assert tfm.FoldedBlockParams._fields[n:] == ("w1_packed",)
+    assert tfm.FoldedBlockParams._field_defaults == {"w1_packed": None}

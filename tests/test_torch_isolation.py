@@ -63,7 +63,8 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py")) + ["chip_smoke.py"]
+    + sorted(str(p.relative_to(REPO)) for p in (REPO / "tools").glob("*.py")),
 )
 def test_no_source_imports_jax(path):
     tree = ast.parse((REPO / path).read_text(), filename=path)

@@ -56,19 +56,26 @@ def _folded(cin, cout, ksize, conv_skip, gen, device):
 @pytest.mark.parametrize(
     "cin,cout,hh,ww,ksize,act,skip",
     [
-        (48, 32, 40, 72, 3, "hswish", "auto"),  # ragged, projected skip
-        (32, 32, 33, 17, 3, "hswish", "auto"),  # ragged, identity skip
-        (128, 40, 45, 70, 5, "silu", "none"),  # 64 mid channels a block
-        (24, 40, 45, 70, 5, "hswish", "conv"),  # 32 mid channels a block
+        (48, 32, 40, 72, 3, "hswish", "auto"),  # ragged rows, projected skip; bf16: TMA
+        (32, 32, 33, 17, 3, "hswish", "auto"),  # ragged, identity skip; bf16: plain loads
+        (128, 40, 45, 70, 5, "silu", "none"),  # bf16: plain loads, two chunks of 64 mid
+        (24, 40, 45, 70, 5, "hswish", "conv"),  # fewer than 32 input channels
         (64, 64, 16, 16, 3, "silu", "identity"),
-        (688, 256, 32, 32, 3, "hswish", "conv"),  # the flagship's widest cell
+        (688, 256, 32, 32, 3, "hswish", "conv"),  # the flagship's widest cell; bf16: TMA
+        (72, 72, 37, 40, 5, "silu", "auto"),  # k5, ragged rows; bf16: TMA, C_in % 32 != 0
+        (96, 48, 20, 44, 3, "hswish", "auto"),  # W % 8 != 0; bf16: plain loads, 12 of 32 last
+        (96, 48, 20, 56, 3, "hswish", "auto"),  # W % 32 != 0; bf16: TMA, 24 of 32 last columns
     ],
 )
 def test_kernel_matches_plain(card, dtype, cin, cout, hh, ww, ksize, act, skip):
+    """Both passes against the plain block; bf16 pass 1 stages x by TMA
+    where W % 8 == 0 and by plain loads elsewhere."""
     gen = torch.Generator().manual_seed(cin * 1000 + hh)
     conv = skip == "conv" or (skip == "auto" and cin != cout)
     fp = _folded(cin, cout, ksize, conv, gen, card)
     x = torch.randn((2, cin, hh, ww), generator=gen).to(card, dtype)
+    want_stage = None if dtype == torch.float32 else ("tma" if ww % 8 == 0 else "plain")
+    assert fm.pass1_staging(x) == want_stage
     ref = fm.fused_inverted_residual_chw_reference(
         x, fp, activation=act, ksize=ksize, skip=skip)
     reset_launch_counts()
@@ -78,6 +85,35 @@ def test_kernel_matches_plain(card, dtype, cin, cout, hh, ww, ksize, act, skip):
     assert got.dtype == dtype and got.shape == (2, cout, hh, ww)
     err = float((got.float() - ref.float()).abs().max())
     assert err < BAR[dtype] * max(1.0, float(ref.float().abs().max())), err
+    h_ref, s_ref = fm.chw_pass1_reference(x, fp, activation=act, ksize=ksize)
+    h, psum = fm.chw_pass1(x, fp, activation=act, ksize=ksize)
+    torch.cuda.synchronize()
+    assert float((h.float() - h_ref.float()).abs().max()) < BAR[dtype] * max(
+        1.0, float(h_ref.float().abs().max()))
+    hw = hh * ww
+    assert float((psum.sum(1) - s_ref.sum(1)).abs().max()) / hw < BAR[dtype] * max(
+        1.0, float(s_ref.abs().max()) / hw)
+
+
+def test_bf16_pass1_on_a_misaligned_view_and_without_packed_weights(card):
+    """A view one element into its storage is not 16-byte aligned: TMA
+    cannot take it, so it stages by plain loads; a hand-built
+    FoldedBlockParams without ``w1_packed`` gets it computed by the
+    wrapper, with the same result as the packed one."""
+    gen = torch.Generator().manual_seed(11)
+    fp = _folded(64, 64, 3, False, gen, card)
+    shape = (2, 64, 24, 32)
+    n = 2 * 64 * 24 * 32
+    x = torch.randn((n + 1,), generator=gen).to(card, torch.bfloat16)[1:].view(shape)
+    assert fm.pass1_staging(x) == "plain"
+    h_ref, _ = fm.chw_pass1_reference(x, fp)
+    h, _ = fm.chw_pass1(x, fp)
+    packed = fp._replace(w1_packed=fm.pack_w1(fp.w1))
+    h2, _ = fm.chw_pass1(x.contiguous().clone(), packed)
+    torch.cuda.synchronize()
+    bar = BAR[torch.bfloat16] * max(1.0, float(h_ref.float().abs().max()))
+    assert float((h.float() - h_ref.float()).abs().max()) < bar
+    assert torch.equal(h, h2)
 
 
 def test_wrapper_raises_on_what_the_kernel_cannot_take(card):
@@ -174,13 +210,24 @@ def test_nhwc_wrappers_raise_on_what_the_kernels_cannot_take(card):
         ((2, 33, 17, 24), 5, 1),  # ragged
         ((2, 64, 64, 48), 3, 2),
         ((1, 45, 31, 40), 5, 2),  # ragged, stride 2
-        ((1, 20, 12, 6), 7, 1),  # a k the kernel takes at run time
+        ((1, 20, 12, 6), 7, 1),  # a k the kernel takes at run time; plain-load staging
+        # the b5 encoder's channel classes
+        ((2, 64, 64, 24), 3, 1),
+        ((2, 32, 32, 48), 3, 1),
+        ((1, 32, 32, 240), 3, 1),
+        ((1, 16, 16, 1056), 5, 1),
+        ((1, 8, 8, 3072), 3, 1),
+        ((2, 32, 32, 240), 5, 2),
+        ((1, 17, 19, 1056), 3, 2),
     ],
 )
 def test_depthwise_kernel_matches_plain(card, dtype, shape, ksize, strides):
-    gen = torch.Generator().manual_seed(shape[1] * 10 + ksize)
+    gen = torch.Generator().manual_seed(shape[1] * 10 + ksize + shape[-1])
     x = torch.randn(shape, generator=gen).to(card, dtype)
     k = torch.randn((ksize, ksize, 1, shape[-1]), generator=gen).to(card)
+    plan = dwm.depthwise_tile_plan(*shape[1:], ksize, strides, x.element_size(),
+                                   batch=shape[0])
+    assert plan.vector == (shape[-1] % (16 // x.element_size()) == 0)
     ref = dwm.depthwise_conv2d_reference(x, k, strides=strides)
     reset_launch_counts()
     got = dwm.depthwise_conv2d(x, k, strides=strides, force="cuda")
@@ -192,17 +239,39 @@ def test_depthwise_kernel_matches_plain(card, dtype, shape, ksize, strides):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_depthwise_occupancy_is_asked_once_per_plan(card, dtype):
+    """The wrapper asks the CUDA runtime for a plan's occupancy on its
+    first call only; at least one block of every encoder-class plan fits
+    on an SM."""
+    gen = torch.Generator().manual_seed(5)
+    for c, ksize in ((24, 3), (240, 3), (1056, 5), (3072, 3)):
+        x = torch.randn((2, 16, 16, c), generator=gen).to(card, dtype)
+        k = torch.randn((ksize, ksize, 1, c), generator=gen).to(card)
+        dwm.depthwise_conv2d(x, k, force="cuda")
+        misses = dwm._blocks_per_sm.cache_info().misses
+        dwm.depthwise_conv2d(x, k, force="cuda")
+        assert dwm._blocks_per_sm.cache_info().misses == misses
+        plan = dwm.depthwise_tile_plan(16, 16, c, ksize, 1, x.element_size(), batch=2,
+                                       sms=dwm._sm_count(card.index or 0))
+        assert dwm._blocks_per_sm(card.index or 0, dtype == torch.bfloat16, plan.vector, ksize,
+                                  1, plan.threads, plan.smem_bytes) >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_depthwise_kernel_on_a_misaligned_view(card, dtype):
     """A contiguous view that starts one element into its storage is not
-    16-byte aligned: the kernel takes its one-channel-a-thread path."""
+    16-byte aligned: the kernel stages it by plain loads, one channel a
+    thread."""
     gen = torch.Generator().manual_seed(3)
     shape = (2, 20, 24, 32)
     n = 2 * 20 * 24 * 32
     x = torch.randn((n + 1,), generator=gen).to(card, dtype)[1:].view(shape)
     k = torch.randn((3, 3, 1, 32), generator=gen).to(card)
     ref = dwm.depthwise_conv2d_reference(x, k)
+    reset_launch_counts()
     got = dwm.depthwise_conv2d(x, k, force="cuda")
     torch.cuda.synchronize()
+    assert LAUNCHES["depthwise_conv2d"] == 1
     bar = (1e-5 if dtype == torch.float32 else 1e-2) * max(1.0, float(ref.float().abs().max()))
     assert float((got.float() - ref.float()).abs().max()) <= bar
 
