@@ -21,8 +21,8 @@ Phases (each raises on failure, so the script exits non-zero):
 5. Timings: fused vs plain latency, and each kernel's time per launch at
    the flagship shapes beside its plain version, its float32 bound and its
    tensor-core bound (the 1x1 products at the bf16 tensor rate), with the
-   share of each bound. The bf16 pass 1 runs its products on the tensor
-   cores, so its bound is the tensor-core one.
+   share of each bound. Both bf16 passes run their products on the tensor
+   cores, so their bound is the tensor-core one.
 6. Profile: device time by kernel group and the device's idle share for
    both engines at bs 4 and 32 (torch.profiler).
 7. The augment kernel (fused colour jitter + normalize) against its plain
@@ -39,7 +39,8 @@ Phases (each raises on failure, so the script exits non-zero):
 9. NHWC kernels vs plain (run after phase 6): the NHWC pair as
    ``fused_ir_fat`` at the 14 fat decoder blocks of the flagship at 512²
    (bs 4, float32 and bfloat16), at the fat blocks of 256² and 1024²
-   (bs 1, bfloat16), on a ragged 40×72 tile and in silu / k5 / identity /
+   (bs 1, bfloat16), on a ragged 40×72 tile, with C_in % 8 != 0 (the
+   plain-load staging of the bf16 pass 1) and in silu / k5 / identity /
    none modes; as ``fused_inverted_residual`` (h in float32) at the 14
    shapes; ``depthwise_conv2d(force="cuda")`` at k 3 and 5, float32 and
    bfloat16, stride 1 and 2, ragged, at the b5 encoder's channel classes
@@ -53,7 +54,8 @@ Phases (each raises on failure, so the script exits non-zero):
    equivariant under rot90 and flips.
 11. NHWC timings: latency of the nhwc, chw and plain routes at bs 1, 4,
    32 and 128; the NHWC pair and kernel 3 per launch at the 14 fat shapes
-   (bf16, bs 4) and the depthwise kernel at the b5 encoder's stride-1
+   (bf16, bs 4; the pass 1 against its tensor-core bound) and the
+   depthwise kernel at the b5 encoder's stride-1
    depthwise shapes (bs 16, 512², bf16) beside their bounds, plain
    versions and, for the depthwise kernel, ``F.conv2d(groups=C)``, both
    also with the L2 cache emptied before each repetition, each shape's
@@ -66,8 +68,9 @@ and power limit, and before that one JSON object describing the kernels
 row, and for the depthwise kernel the cold-L2 times ``cold_ms`` /
 ``library_cold_ms`` and the host time of a call ``host_ms`` /
 ``library_host_ms``). ``bound_ms`` takes the rates of the kernel's own
-arithmetic: the tensor-core bound for the bf16 pass 1 of kernel 1, the
-float32 bound for the others.
+arithmetic: the tensor-core bound for both bf16 passes of kernel 1 and
+for the bf16 NHWC pass 1 (kernels 2 and 3), the float32 bound for the
+others.
 Imports nothing of JAX.
 """
 
@@ -221,7 +224,8 @@ def phase_device():
         entry, spills = "?", ""
         for line in _build.ptxas_log(name).splitlines():
             m = re.search(
-                r"(pass\d_(?:bf16_)?kernel|nhwc_p\d_kernel|dw_tile_kernel|augment_[a-z]+_kernel)"
+                r"(pass\d_(?:bf16_)?kernel|nhwc_p\d_(?:bf16_)?kernel|dw_tile_kernel"
+                r"|augment_[a-z]+_kernel)"
                 r"(I\w*?E)?E", line)
             if m:
                 entry = f"{m.group(1)}<{(m.group(2) or '')[1:-1]}>"
@@ -562,13 +566,6 @@ def bounds(shape, fp, skip: str, itemsize: int):
     return (p1_bytes, p1_flops, p1_mm), (p2_bytes, p2_flops, p2_mm)
 
 
-def tc_bound_ms(nbytes: float, flops: float, mm_flops: float) -> float:
-    """The tensor-core bound of a bf16 row: max(bytes / HBM rate, 1x1
-    products / bf16 tensor rate + the rest / float32 rate), ms."""
-    return max(nbytes / HBM_BYTES_PER_S,
-               mm_flops / TC_FLOP_PER_S + (flops - mm_flops) / F32_FLOP_PER_S) * 1e3
-
-
 def phase_timings(model, fused, plain, card: str):
     import torch
 
@@ -596,8 +593,8 @@ def phase_timings(model, fused, plain, card: str):
         f"median of 21) on {card}; f32 bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, "
         f"f32 FLOPs / {F32_FLOP_PER_S:.3g} FLOP/s); tc bound = max(bytes / "
         f"{HBM_BYTES_PER_S:.3g} B/s, 1x1 FLOPs / {TC_FLOP_PER_S:.3g} + the rest / "
-        f"{F32_FLOP_PER_S:.3g} FLOP/s); bound = the tc bound for pass 1 (bf16 products "
-        "on the tensor cores), the f32 bound for pass 2; share = bound / time")
+        f"{F32_FLOP_PER_S:.3g} FLOP/s); bound = the tc bound (both passes run their bf16 "
+        "products on the tensor cores); share = bound / time")
     gen = torch.Generator().manual_seed(SEED + 4)
     tot = {n: {} for n in REPLACES}
     for name, i, shape, fp in flagship_block_shapes(model, 4):
@@ -616,15 +613,12 @@ def phase_timings(model, fused, plain, card: str):
         for kname, (kern, ref), (nbytes, flops, mm) in zip(rows, rows.values(), (b1, b2)):
             ms = cuda_time_ms(kern)
             pms = cuda_time_ms(ref)
-            tensor_cores = kname == "fused_ir_chw_pass1"  # bf16 x: the products on the tensor cores
             bound, by = _add_time(tot[kname], ms, pms, nbytes, flops, mm_flops=mm,
-                                  tensor_cores=tensor_cores)
-            other, other_name = ((max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3,
-                                  "f32 bound") if tensor_cores
-                                 else (tc_bound_ms(nbytes, flops, mm), "tc bound"))
+                                  tensor_cores=True)
+            f32 = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
             parts.append(f"{kname[-5:]} {ms:.4f} ms (plain {pms:.4f}, bound {bound:.4f} "
-                         f"{by}, share {bound / ms:.1%}; {other_name} {other:.4f}, share "
-                         f"{other / ms:.1%})")
+                         f"{by}, share {bound / ms:.1%}; f32 bound {f32:.4f}, share "
+                         f"{f32 / ms:.1%})")
         log(f"  {name}.conv{i + 1} {tuple(shape[1:])}: " + "; ".join(parts))
     for kname, t in tot.items():
         log(f"  {kname}: one forward's 22 launches {t['ms']:.4f} ms, plain "
@@ -821,6 +815,7 @@ def phase_nhwc_kernels(model, errs):
         # (label, cin, cout, H, W, ksize, activation, skip)
         ("ragged 40x72 conv skip", 64, 32, 40, 72, 3, "hswish", "auto"),
         ("ragged 40x72 identity", 96, 96, 40, 72, 3, "hswish", "auto"),
+        ("C_in % 8 != 0 conv skip", 100, 48, 40, 72, 3, "hswish", "auto"),  # plain loads
         ("k5 silu none", 88, 40, 45, 70, 5, "silu", "none"),  # 32-channel blocks
         ("k3 silu identity", 64, 64, 45, 70, 3, "silu", "identity"),
         ("k5 hswish conv", 128, 96, 45, 70, 5, "hswish", "conv"),  # 64-channel blocks
@@ -978,13 +973,16 @@ def encoder_dw_shapes(model, bsz: int, img: int = IMG):
 def nhwc_bounds(shape, fp, skip: str, itemsize: int, h_itemsize: int):
     """(bytes, flops, 1x1-product flops) of each NHWC pass: the CHW
     formula with h's item size as a parameter."""
+    import torch
+
+    from deadtrees_tpu_torch.ops import fused_cell as fc
+
     bsz, hh, ww, cin = shape
     hw = hh * ww
     cm = fp.w1.shape[1]
     cout = fp.w2.shape[1]
     k = fp.dw.shape[0]
-    tile = 16 - 2 * (k // 2)
-    n_tiles = -(-hh // tile) * -(-ww // tile)
+    n_tiles = fc.pass1_tiles(hh, ww, k, torch.bfloat16 if itemsize == 2 else torch.float32)
     w1_bytes = 4 * (fp.w1.numel() + fp.b1.numel() + fp.dw.numel() + fp.b_dw.numel())
     p1_bytes = bsz * hw * (cin * itemsize + cm * h_itemsize) + bsz * n_tiles * cm * 4 + w1_bytes
     p1_mm = 2 * bsz * hw * cin * cm
@@ -1052,8 +1050,9 @@ def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
     del chw
 
     log(f"NHWC kernels per launch at the {FAT_BLOCKS} fat shapes (bf16 x, bs 4, CUDA "
-        f"events, median of 21) on {card}; bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, "
-        f"f32 FLOPs / {F32_FLOP_PER_S:.3g} FLOP/s), h's item size 2 (kernel 2) or 4 "
+        f"events, median of 21) on {card}; bound = the tc bound for pass 1 (its bf16 "
+        f"products on the tensor cores), max(bytes / {HBM_BYTES_PER_S:.3g} B/s, f32 FLOPs / "
+        f"{F32_FLOP_PER_S:.3g} FLOP/s) for pass 2; h's item size 2 (kernel 2) or 4 "
         "(kernel 3)")
     gen = torch.Generator().manual_seed(SEED + 15)
     names = FAT + K3
@@ -1076,15 +1075,18 @@ def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
             b1, b2 = nhwc_bounds(shape, fp, skip, 2, 4 if kernel3 else 2)
             for (kname, kern, ref), (nbytes, flops, mm) in zip(rows, (b1, b2)):
                 ms, pms = cuda_time_ms(kern), cuda_time_ms(ref)
-                bound, by = _add_time(tot[kname], ms, pms, nbytes, flops, mm_flops=mm)
+                bound, by = _add_time(tot[kname], ms, pms, nbytes, flops, mm_flops=mm,
+                                      tensor_cores=kname == n1)
                 parts.append(f"{'k3' if kernel3 else 'k2'} p{kname[-1]} {ms:.4f} "
-                             f"(plain {pms:.4f}, bound {bound:.4f} {by})")
+                             f"(plain {pms:.4f}, bound {bound:.4f} {by}, share "
+                             f"{bound / ms:.1%})")
         log(f"  {name}.conv{i + 1} {tuple(shape[1:])}: " + "; ".join(parts))
     for kname in names:
         t = tot[kname]
         log(f"  {kname}: one forward's {FAT_BLOCKS} launches {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes "
-            f"{t['bytes_ms']:.4f}, ops {t['ops_ms']:.4f}), tc bound {t['tc_bound_ms']:.4f} ms")
+            f"{t['bytes_ms']:.4f}, ops {t['ops_ms']:.4f}), share {t['bound_ms'] / t['ms']:.1%}; "
+            f"f32 bound {t['f32_bound_ms']:.4f} ms, tc bound {t['tc_bound_ms']:.4f} ms")
 
     shapes = encoder_dw_shapes(model, TRAIN_BS)
     log(f"depthwise kernel at the b5 encoder's {sum(shapes.values())} stride-1 depthwise "

@@ -17,7 +17,8 @@
 // decoder shapes the block does 2*C^2 to 4*C^2 FLOPs per pixel for about
 // 4*C*2 bytes of traffic per pixel (bf16), so with C from 16 to 688 it is
 // bound by operations whenever it runs on the CUDA cores (67 TFLOP/s f32),
-// and by bytes only for the thin 512^2 cells.
+// and by bytes only for the thin 512^2 cells; with the products on the
+// tensor cores (989 TFLOP/s bf16) both bf16 passes are bound by bytes.
 //
 // bf16 pass 1 (`pass1_bf16_kernel`, the served route): the 1x1 expand runs
 // on the tensor cores (tc_expand.cuh: mma.sync bf16 with float32
@@ -40,11 +41,27 @@
 // a shared tile and written in whole 32-pixel rows with 16-byte stores, and
 // the cSE partial sums keep the float32 path's fixed order.
 //
-// The float32 path (`pass1_kernel`, float32 x): every multiply-add runs in
-// float32 on the CUDA cores, from shared-memory tiles. Pass 1 takes one block per
-// (output tile, 64 or 32 mid channels, image); the output tile is 14x14
-// (k=3) or 12x12 (k=5), so that its haloed tile is 16x16 pixels, one a
-// thread.
+// bf16 pass 2 (`pass2_bf16_kernel`, the served route): every product runs
+// on the tensor cores with h, as stored, for the B operand. The mix
+// W2^T (h*gate + h*s) becomes (W2*gate)^T h + s * W2^T h, so the A operands
+// are W2^T (split into bf16 hi + lo at fold time), (W2*gate)^T (formed by
+// the block per chunk from the packed W2 and the image's gate, split again
+// into hi + lo) and the sSE tile (hi and lo of w_sse as rows 0 and 1 of one
+// m16 tile, so one product gives the logit); the conv skip Wsk^T x adds
+// into the gated sums. One block of 8 warps per (128 pixels, 64 output
+// channels, image): h, then x for the conv skip, arrive 32 channels at a
+// time through a 3-stage ring, each chunk two 3-D TMA boxes of 64 pixels in
+// the 128-byte swizzle (conflict-free ldmatrix.trans) plus bulk copies of
+// the chunk's packed weights; HW % 8 != 0 or a misaligned h or x takes the
+// same kernel with a plain-load staging variant. The epilogue computes
+// out = acc_g + sigmoid(z + b_sse) acc_p + b2 + skip in float32 and writes
+// rows of the tile with 16-byte stores.
+//
+// The float32 path (`pass1_kernel`, `pass2_kernel`, float32 x): every
+// multiply-add runs in float32 on the CUDA cores, from shared-memory
+// tiles. Pass 1 takes one block per (output tile, 64 or 32 mid channels,
+// image); the output tile is 14x14 (k=3) or 12x12 (k=5), so that its
+// haloed tile is 16x16 pixels, one a thread.
 // It runs the expand as a register-tiled GEMM over the haloed pixels
 // (Cin in steps of 16, the next step fetched into registers while the
 // current one is summed: Cin reaches 688), writes y for the haloed tile
@@ -53,16 +70,16 @@
 // repeat exactly). Pass 2 takes one block per (128 pixels, 32 output
 // channels, image).
 //
-// What it leaves for later work: wgmma in place of mma.sync (a warpgroup
-// product from shared memory, the card's full tensor rate), the tensor
-// cores in pass 2, the halo recompute of pass 1 (the bf16 expand covers
-// 512 (k = 3) or 576 (k = 5) pixels a channel for an 8 x 32 output tile,
-// of which the conv reads 340 or 432: the 16-byte box origin stages 16
-// columns where 2P would do, and the pixels are padded to whole n8 tiles
-// of the 8 warps), x read once per 64 mid
-// channels in pass 1 and h once per 32 output channels in pass 2, and the
-// launch count per block (two kernels plus the small gate ops, 22 times
-// per forward).
+// What it leaves for later work: wgmma in place of mma.sync in both bf16
+// passes (a warpgroup product from shared memory, the card's full tensor
+// rate), the halo recompute of pass 1 (the bf16 expand covers 512 (k = 3)
+// or 576 (k = 5) pixels a channel for an 8 x 32 output tile, of which the
+// conv reads 340 or 432: the 16-byte box origin stages 16 columns where 2P
+// would do, and the pixels are padded to whole n8 tiles of the 8 warps),
+// x read once per 64 mid channels in pass 1, pass 2's latency at the thin
+// 256^2 and 512^2 cells (one or two chunks a block, no overlap of one
+// tile's epilogue with the next tile's copies), and the launch count per
+// block (two kernels plus the small gate ops, 22 times per forward).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -86,19 +103,12 @@ constexpr int kPer = kCoTile / (kThreads / kPix2);  // outputs per thread
 static_assert(kSide2 == kThreads, "pass 1 stages one haloed pixel a thread");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
 // 0: hard swish x * relu6(x + 3) / 6; 1: silu x * sigmoid(x)
@@ -619,16 +629,15 @@ __global__ void __launch_bounds__(kThreadsB, 1)
 #endif
 }
 
-// skip: 0 none, 1 identity (cin == cout), 2 conv
-template <typename T>
+// The float32 pass 2. skip: 0 none, 1 identity (cin == cout), 2 conv
 __global__ void __launch_bounds__(kThreads)
-    pass2_kernel(const T* __restrict__ h, const T* __restrict__ x,
+    pass2_kernel(const float* __restrict__ h, const float* __restrict__ x,
                  const float* __restrict__ gate,
                  const float* __restrict__ sse_w,
                  const float* __restrict__ sse_b,
                  const float* __restrict__ w2, const float* __restrict__ b2,
                  const float* __restrict__ wsk,
-                 const float* __restrict__ bsk, T* __restrict__ out, int cin,
+                 const float* __restrict__ bsk, float* __restrict__ out, int cin,
                  int cm, int cout, int hw, int skip) {
   __shared__ float vs[kCChunk2][kPix2];
   __shared__ float ws[kCoTile][kCChunk2 + 1];
@@ -642,15 +651,15 @@ __global__ void __launch_bounds__(kThreads)
   const bool valid = p < hw;
   const int co0 = blockIdx.y * kCoTile;
   const int b = blockIdx.z;
-  const T* hb = h + (size_t)b * cm * hw + p;
-  const T* xb = x + (size_t)b * cin * hw + p;
+  const float* hb = h + (size_t)b * cm * hw + p;
+  const float* xb = x + (size_t)b * cin * hw + p;
   const float* gb = gate + (size_t)b * cm;
 
   // sSE logit: the thread groups split the channels, summed in fixed order
   float z = 0.f;
   if (valid)
     for (int c = grp; c < cm; c += kGroups)
-      z = fmaf(sse_w[c], to_f32(hb[(size_t)c * hw]), z);
+      z = fmaf(sse_w[c], hb[(size_t)c * hw], z);
   part[grp][pix] = z;
   __syncthreads();
   z = sse_b[0];
@@ -669,7 +678,7 @@ __global__ void __launch_bounds__(kThreads)
       const int c = c0 + j;
       float v = 0.f;
       if (valid && c < cm) {
-        const float hv = to_f32(hb[(size_t)c * hw]);
+        const float hv = hb[(size_t)c * hw];
         v = hv * gb[c] + hv * s;
       }
       vs[j][pix] = v;
@@ -697,7 +706,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c0 = 0; c0 < cin; c0 += kCChunk2) {
       for (int j = grp; j < kCChunk2; j += kGroups) {
         const int c = c0 + j;
-        vs[j][pix] = (valid && c < cin) ? to_f32(xb[(size_t)c * hw]) : 0.f;
+        vs[j][pix] = (valid && c < cin) ? xb[(size_t)c * hw] : 0.f;
       }
       for (int i = tid; i < kCoTile * kCChunk2; i += kThreads) {
         const int j = i / kCoTile;
@@ -719,7 +728,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (!valid) return;
-  T* ob = out + (size_t)b * cout * hw + p;
+  float* ob = out + (size_t)b * cout * hw + p;
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int co = co0 + grp * kPer + k;
@@ -728,9 +737,383 @@ __global__ void __launch_bounds__(kThreads)
     if (skip == 2) {
       v += accs[k] + bsk[co];
     } else if (skip == 1) {
-      v += to_f32(xb[(size_t)co * hw]);
+      v += xb[(size_t)co * hw];
     }
-    ob[(size_t)co * hw] = from_f32<T>(v);
+    ob[(size_t)co * hw] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 pass 2: the projection, the sSE logit and the conv skip on the tensor
+// cores
+// ---------------------------------------------------------------------------
+//
+// With gate g (per image and mid channel) and s[p] = sigmoid(z[p] + b_sse),
+// z[p] = sum_c w_sse[c] h[c, p], the projection of h*g + h*s is
+//   sum_c (W2[c, o] g[c]) h[c, p] + s[p] sum_c W2[c, o] h[c, p],
+// so every product takes h as stored (bf16, exact) for its B operand. The
+// A operands: W2^T (`w2_packed`, W2 split into bf16 hi + lo in the order
+// of pack_w1), (W2 * g)^T, which the block forms per chunk from the packed
+// W2 and g and splits again into hi + lo, and the sSE tile (`sse_packed`:
+// row 0 hi(w_sse), row 1 lo(w_sse), so that one product gives both halves
+// of z). The conv skip is one more product, Wsk^T (`wsk_packed`) against x,
+// summed with the gated one. h and x arrive in chunks of 32 channels x 128
+// pixels: two TMA boxes of 64 pixels (128 bytes a channel, the 128-byte
+// swizzle keeps the ldmatrix.trans reads free of bank conflicts).
+
+constexpr int kThreadsP2 = 256;  // 8 warps: 2 along the outputs x 4 along the pixels
+constexpr int kPixP2 = 128;      // pixels a block
+constexpr int kBoxPix = 64;      // pixels a box: one 128-byte swizzled row a channel
+constexpr int kBoxBytes = tc::kKc * kBoxPix * 2;  // 4 KB
+constexpr int kStagesP2 = 3;                      // chunks in flight (TMA variant)
+constexpr int kSseElems = 2 * 32 * 8;             // a chunk's sSE tiles: [k16 step][lane][8]
+constexpr int kSseBytes = kSseElems * 2;
+constexpr int kStageP2 = 2 * kBoxBytes + tc::kWChunkBytes + kSseBytes;  // 17 KB
+constexpr int kGatedOff = kStagesP2 * kStageP2;   // two gated W2 chunks
+constexpr int kZOff = kGatedOff + 2 * tc::kWChunkBytes;  // z of the block's pixels
+constexpr int kBarOff = kZOff + kPixP2 * 4;
+constexpr int kSmemP2 = kBarOff + kStagesP2 * 8 + 1024;  // + the ring's 1024-byte alignment
+constexpr int kOutStride = kPixP2 + 8;  // floats a row of the staged output tile
+static_assert(kStageP2 % 1024 == 0, "stages stay 1024-byte aligned (128-byte swizzle)");
+static_assert(tc::kCmb * kOutStride * 4 <= kStagesP2 * kStageP2, "the output tile fits the ring");
+
+// One thread: step c's h (c < nh) or x chunk (two boxes; the second only if
+// it holds a pixel of the image), its packed W2 or Wsk chunk and, for h,
+// its sSE tiles, into stage c % kStagesP2, completing on that stage's
+// mbarrier. A box's pixels past the image (or its channels past C) are
+// zero-filled; a second box left out leaves stale pixels whose products
+// are never stored.
+__device__ __forceinline__ void issue_p2(const CUtensorMap* hmap, const CUtensorMap* xmap,
+                                         unsigned char* ring, uint64_t* bars, int c, int nh,
+                                         int p0, int hw, int b,
+                                         const __nv_bfloat16* w2blk,
+                                         const __nv_bfloat16* ssep,
+                                         const __nv_bfloat16* wskblk) {
+  const int s = c % kStagesP2;
+  unsigned char* st = ring + s * kStageP2;
+  const bool hstep = c < nh;
+  const bool two = p0 + kBoxPix < hw;
+  tc::mbar_expect_tx(&bars[s], (two ? 2 : 1) * kBoxBytes + tc::kWChunkBytes +
+                                   (hstep ? kSseBytes : 0));
+  const CUtensorMap* map = hstep ? hmap : xmap;
+  const int cc = hstep ? c : c - nh;
+  tc::tma_load_3d(st, map, p0, cc * tc::kKc, b, &bars[s]);
+  if (two) tc::tma_load_3d(st + kBoxBytes, map, p0 + kBoxPix, cc * tc::kKc, b, &bars[s]);
+  const __nv_bfloat16* wsrc = (hstep ? w2blk : wskblk) + (size_t)cc * tc::kWChunkElems;
+  tc::bulk_load(st + 2 * kBoxBytes, wsrc, tc::kWChunkBytes, &bars[s]);
+  if (hstep)
+    tc::bulk_load(st + 2 * kBoxBytes + tc::kWChunkBytes, ssep + (size_t)c * kSseElems,
+                  kSseBytes, &bars[s]);
+}
+
+// The gated A operand of chunk c: thread tid takes lane tid % 32 of m16
+// tile (tid / 32) % 4 at k16 step tid / 128, rebuilds W2 = hi + lo, scales
+// each column by its channel's gate and splits the product into hi + lo.
+__device__ __forceinline__ void gate_chunk(const uint4* wv, uint4* gv, const float* gb, int c,
+                                           int cm, int tid) {
+  const int ks = tid >> 7;
+  const int mt = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int ih = ((ks * 2) * 4 + mt) * 32 + lane;
+  const int il = ((ks * 2 + 1) * 4 + mt) * 32 + lane;
+  const int c0 = c * tc::kKc + ks * 16 + 2 * (lane & 3);
+  float g[4];  // the gates of the fragment's columns 2t, 2t + 1, 2t + 8, 2t + 9
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int ch = c0 + (q & 1) + (q >> 1) * 8;
+    g[q] = ch < cm ? gb[ch] : 0.f;
+  }
+  const uint4 hi = wv[ih];
+  const uint4 lo = wv[il];
+  uint4 oh, ol;
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&hi);
+  const __nv_bfloat162* l2 = reinterpret_cast<const __nv_bfloat162*>(&lo);
+  __nv_bfloat162* oh2 = reinterpret_cast<__nv_bfloat162*>(&oh);
+  __nv_bfloat162* ol2 = reinterpret_cast<__nv_bfloat162*>(&ol);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {  // register r: columns 2t, 2t + 1 (r < 2) or 2t + 8, 2t + 9
+    const float2 fh = __bfloat1622float2(h2[r]);
+    const float2 fl = __bfloat1622float2(l2[r]);
+    const float v0 = (fh.x + fl.x) * g[2 * (r >> 1)];
+    const float v1 = (fh.y + fl.y) * g[2 * (r >> 1) + 1];
+    const __nv_bfloat162 top = __floats2bfloat162_rn(v0, v1);
+    const float2 ft = __bfloat1622float2(top);
+    oh2[r] = top;
+    ol2[r] = __floats2bfloat162_rn(v0 - ft.x, v1 - ft.y);
+  }
+  gv[ih] = oh;
+  gv[il] = ol;
+}
+
+// One chunk's products of a warp: m16 tiles wm * 2 + i (those holding an
+// output), n8 tiles wn * 4 + j. An h step (HSTEP) adds W2^T h to accp,
+// (W2 g)^T h to accg and, for n8 tiles 2 wm and 2 wm + 1, the sSE tile's
+// product to accz; a skip step adds Wsk^T x to accg.
+template <bool HSTEP>
+__device__ __forceinline__ void p2_products(uint32_t bbase, const uint4* wv, const uint4* gv,
+                                            const uint4* sv, float (*accp)[4][4],
+                                            float (*accg)[4][4], float (*accz)[4], int wm,
+                                            int wn, int lane, bool live0, bool live1) {
+  // ldmatrix.trans rows: lanes 0-15 channels 0-15 of the first n8 tile of a
+  // pair, lanes 16-31 the same of the second; 16-byte column q of a box's
+  // 128-byte row sits at q ^ (row % 8)
+  const int r = lane & 15;
+  const uint32_t box = bbase + (uint32_t)((wn >> 1) * kBoxBytes);
+  const int q0 = (wn & 1) * 4 + (lane >> 4);
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    const int row = ks * 16 + r;
+    uint32_t bf[2][4];
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp)
+      tc::ldsm_x4_trans(box + (uint32_t)(row * 128 + (((q0 + jp * 2) ^ (row & 7)) << 4)),
+                        bf[jp]);
+    if (HSTEP) {
+      const uint4 as = sv[ks * 32 + lane];
+      tc::mma_bf16(accz[0], as, wm ? bf[1][0] : bf[0][0], wm ? bf[1][1] : bf[0][1]);
+      tc::mma_bf16(accz[1], as, wm ? bf[1][2] : bf[0][2], wm ? bf[1][3] : bf[0][3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!(i ? live1 : live0)) continue;
+      const int mt = wm * 2 + i;
+      const uint4 ph = wv[((ks * 2) * 4 + mt) * 32 + lane];
+      const uint4 pl = wv[((ks * 2 + 1) * 4 + mt) * 32 + lane];
+      uint4 gh = ph, gl = pl;
+      if (HSTEP) {
+        gh = gv[((ks * 2) * 4 + mt) * 32 + lane];
+        gl = gv[((ks * 2 + 1) * 4 + mt) * 32 + lane];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t b0 = bf[j >> 1][(j & 1) * 2];
+        const uint32_t b1 = bf[j >> 1][(j & 1) * 2 + 1];
+        if (HSTEP) {
+          tc::mma_bf16(accp[i][j], ph, b0, b1);
+          tc::mma_bf16(accp[i][j], pl, b0, b1);
+          tc::mma_bf16(accg[i][j], gh, b0, b1);
+          tc::mma_bf16(accg[i][j], gl, b0, b1);
+        } else {
+          tc::mma_bf16(accg[i][j], ph, b0, b1);
+          tc::mma_bf16(accg[i][j], pl, b0, b1);
+        }
+      }
+    }
+  }
+}
+
+// One block of 8 warps per (128 pixels, 64 output channels, image). skip: 0
+// none, 1 identity (cin == cout), 2 conv. TMA: h and x by 3-D TMA boxes
+// through a ring of kStagesP2 stages (HW % 8 == 0, h and a read x 16-byte
+// aligned); else one stage filled by plain loads in the same swizzled
+// layout. The epilogue stages the float32 tile in shared memory and writes
+// out = acc_g + s acc_p + b2 (+ bsk) (+ x) as bf16 rows, 16 bytes a store in
+// the TMA variant.
+template <bool TMA>
+__global__ void __launch_bounds__(kThreadsP2, 2)
+    pass2_bf16_kernel(const __grid_constant__ CUtensorMap hmap,
+                      const __grid_constant__ CUtensorMap xmap,
+                      const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ x,
+                      const float* __restrict__ gate, const __nv_bfloat16* __restrict__ w2p,
+                      const __nv_bfloat16* __restrict__ ssep, const float* __restrict__ sse_b,
+                      const float* __restrict__ b2, const __nv_bfloat16* __restrict__ wskp,
+                      const float* __restrict__ bsk, __nv_bfloat16* __restrict__ out, int cin,
+                      int cm, int cout, int hw, int skip) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = tc::align1024(smem_raw);
+  uint4* gated = reinterpret_cast<uint4*>(ring + kGatedOff);
+  float* zs = reinterpret_cast<float*>(ring + kZOff);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kBarOff);
+  float* ot = reinterpret_cast<float*>(ring);  // [64][kOutStride], after the products
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2;
+  const int wn = warp & 3;
+  const int p0 = blockIdx.x * kPixP2;
+  const int o0 = blockIdx.y * tc::kCmb;
+  const int b = blockIdx.z;
+  const int nh = (cm + tc::kKc - 1) / tc::kKc;
+  const int nxc = (cin + tc::kKc - 1) / tc::kKc;
+  const int nsteps = nh + (skip == 2 ? nxc : 0);
+  const __nv_bfloat16* w2blk = w2p + (size_t)blockIdx.y * nh * tc::kWChunkElems;
+  const __nv_bfloat16* wskblk =
+      skip == 2 ? wskp + (size_t)blockIdx.y * nxc * tc::kWChunkElems : nullptr;
+  const float* gb = gate + (size_t)b * cm;
+  const bool live0 = o0 + wm * 32 < cout;  // warp-uniform: the m16 tile holds an output
+  const bool live1 = o0 + wm * 32 + 16 < cout;
+  constexpr int kW = 2 * kBoxBytes;      // a stage's packed W chunk
+  constexpr int kS = kW + tc::kWChunkBytes;  // and its sSE tiles
+
+  float accp[2][4][4], accg[2][4][4], accz[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accp[i][j][e] = accg[i][j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) accz[j][e] = 0.f;
+
+  if constexpr (TMA) {
+    if (tid == 0) {
+      for (int s = 0; s < kStagesP2; ++s) tc::mbar_init(&bars[s], 1);
+      tc::mbar_fence_init();
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int c = 0; c < kStagesP2 && c < nsteps; ++c)
+        issue_p2(&hmap, &xmap, ring, bars, c, nh, p0, hw, b, w2blk, ssep, wskblk);
+    tc::mbar_wait(&bars[0], 0);
+    gate_chunk(reinterpret_cast<const uint4*>(ring + kW), gated, gb, 0, cm, tid);
+    __syncthreads();
+    for (int c = 0; c < nsteps; ++c) {
+      unsigned char* st = ring + (c % kStagesP2) * kStageP2;
+      const uint4* wv = reinterpret_cast<const uint4*>(st + kW);
+      if (c < nh)
+        p2_products<true>(tc::smem_u32(st), wv, gated + (c & 1) * (tc::kWChunkBytes / 16),
+                          reinterpret_cast<const uint4*>(st + kS), accp, accg, accz, wm, wn,
+                          lane, live0, live1);
+      else
+        p2_products<false>(tc::smem_u32(st), wv, nullptr, nullptr, accp, accg, accz, wm, wn,
+                           lane, live0, live1);
+      if (c + 1 < nsteps) {  // the next chunk: wait for it, form its gated operand
+        const int s1 = (c + 1) % kStagesP2;
+        tc::mbar_wait(&bars[s1], ((c + 1) / kStagesP2) & 1);
+        if (c + 1 < nh)
+          gate_chunk(reinterpret_cast<const uint4*>(ring + s1 * kStageP2 + kW),
+                     gated + ((c + 1) & 1) * (tc::kWChunkBytes / 16), gb, c + 1, cm, tid);
+      }
+      __syncthreads();  // stage c % kStagesP2 is consumed; the next gated operand is ready
+      if (tid == 0 && c + kStagesP2 < nsteps)
+        issue_p2(&hmap, &xmap, ring, bars, c + kStagesP2, nh, p0, hw, b, w2blk, ssep, wskblk);
+    }
+  } else {
+    for (int c = 0; c < nsteps; ++c) {
+      __syncthreads();  // the previous chunk is consumed
+      const bool hstep = c < nh;
+      const __nv_bfloat16* src = hstep ? h : x;
+      const int nc = hstep ? cm : cin;
+      const int cc = hstep ? c : c - nh;
+      for (int i = tid; i < tc::kKc * kPixP2; i += kThreadsP2) {
+        const int r = i / kPixP2;
+        const int q = i - r * kPixP2;
+        const int gc = cc * tc::kKc + r;
+        const int p = p0 + q;
+        const int qq = q & (kBoxPix - 1);
+        *reinterpret_cast<__nv_bfloat16*>(ring + (q / kBoxPix) * kBoxBytes + r * 128 +
+                                          (((qq >> 3) ^ (r & 7)) << 4) + (qq & 7) * 2) =
+            (gc < nc && p < hw) ? src[((size_t)b * nc + gc) * hw + p] : __float2bfloat16(0.f);
+      }
+      const uint4* wsrc = reinterpret_cast<const uint4*>((hstep ? w2blk : wskblk) +
+                                                         (size_t)cc * tc::kWChunkElems);
+      uint4* wdst = reinterpret_cast<uint4*>(ring + kW);
+      for (int i = tid; i < tc::kWChunkBytes / 16; i += kThreadsP2) wdst[i] = wsrc[i];
+      if (hstep) {
+        const uint4* ssrc = reinterpret_cast<const uint4*>(ssep + (size_t)c * kSseElems);
+        uint4* sdst = reinterpret_cast<uint4*>(ring + kS);
+        for (int i = tid; i < kSseBytes / 16; i += kThreadsP2) sdst[i] = ssrc[i];
+      }
+      __syncthreads();
+      if (hstep) {
+        gate_chunk(wdst, gated, gb, c, cm, tid);
+        __syncthreads();
+        p2_products<true>(tc::smem_u32(ring), wdst, gated,
+                          reinterpret_cast<const uint4*>(ring + kS), accp, accg, accz, wm, wn,
+                          lane, live0, live1);
+      } else {
+        p2_products<false>(tc::smem_u32(ring), wdst, nullptr, nullptr, accp, accg, accz, wm,
+                           wn, lane, live0, live1);
+      }
+    }
+  }
+
+  // z of the warp's n8 tiles 2 wm, 2 wm + 1: row 0 (hi) + row 1 (lo) of the
+  // sSE product, in lanes 0-3 and 4-7
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const float v0 = accz[jj][0] + __shfl_down_sync(0xffffffffu, accz[jj][0], 4);
+    const float v1 = accz[jj][1] + __shfl_down_sync(0xffffffffu, accz[jj][1], 4);
+    if (lane < 4) {
+      const int n = wn * 32 + (wm * 2 + jj) * 8 + 2 * lane;
+      zs[n] = v0;
+      zs[n + 1] = v1;
+    }
+  }
+  __syncthreads();  // z is complete; the ring is no longer read: the output tile overlays it
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float sb = sse_b[0];
+  float sv[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      sv[j][e] = 1.f / (1.f + expf(-(zs[wn * 32 + j * 8 + 2 * t + e] + sb)));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!(i ? live1 : live0)) continue;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int o = (wm * 2 + i) * 16 + hr * 8 + g;
+      if (o0 + o >= cout) continue;
+      const float bias = b2[o0 + o] + (skip == 2 ? bsk[o0 + o] : 0.f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float2 v;
+        v.x = accg[i][j][hr * 2] + sv[j][0] * accp[i][j][hr * 2] + bias;
+        v.y = accg[i][j][hr * 2 + 1] + sv[j][1] * accp[i][j][hr * 2 + 1] + bias;
+        *reinterpret_cast<float2*>(&ot[o * kOutStride + wn * 32 + j * 8 + 2 * t]) = v;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the tile's rows, with the identity skip added in float32
+  const int rows = min(tc::kCmb, cout - o0);
+  __nv_bfloat16* ob = out + ((size_t)b * cout + o0) * hw;
+  const __nv_bfloat16* xb = x + ((size_t)b * cin + o0) * hw;  // identity: cin == cout
+  if constexpr (TMA) {
+    // HW % 8 == 0: a run of 8 pixels (16 bytes) is all inside or all outside
+    constexpr int kRuns = kPixP2 / 8;
+    for (int i = tid; i < rows * kRuns; i += kThreadsP2) {
+      const int o = i / kRuns;
+      const int q = i - o * kRuns;
+      const int p = p0 + q * 8;
+      if (p >= hw) continue;
+      const float4 u0 = *reinterpret_cast<const float4*>(&ot[o * kOutStride + q * 8]);
+      const float4 u1 = *reinterpret_cast<const float4*>(&ot[o * kOutStride + q * 8 + 4]);
+      float v[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+      if (skip == 1) {
+        const uint4 xv = *reinterpret_cast<const uint4*>(xb + (size_t)o * hw + p);
+        const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xv);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(x2[k]);
+          v[2 * k] += f.x;
+          v[2 * k + 1] += f.y;
+        }
+      }
+      uint4 pk;
+      __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&pk);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) p2[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      *reinterpret_cast<uint4*>(ob + (size_t)o * hw + p) = pk;
+    }
+  } else {
+    for (int i = tid; i < rows * kPixP2; i += kThreadsP2) {
+      const int o = i / kPixP2;
+      const int q = i - o * kPixP2;
+      const int p = p0 + q;
+      if (p >= hw) continue;
+      float v = ot[o * kOutStride + q];
+      if (skip == 1) v += __bfloat162float(xb[(size_t)o * hw + p]);
+      ob[(size_t)o * hw + p] = __float2bfloat16(v);
+    }
   }
 }
 
@@ -766,31 +1149,6 @@ void launch_pass1(const void* x, const void* w1, const void* b1,
                                     cm, height, width, stream);
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
-// the library needs no -lcuda at link time
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 template <int K, int ACT, bool TMA>
 int launch_pass1_bf16(const void* x, const void* wpk, const void* b1, const void* dw,
                       const void* bdw, void* h, void* psum, int batch, int cin, int cm,
@@ -809,7 +1167,7 @@ int launch_pass1_bf16(const void* x, const void* wpk, const void* b1, const void
   if constexpr (TMA) {
     // x as a 4-D tensor (W, H, C_in, B), innermost first; one box is a
     // chunk's haloed tile: 48 columns x HH rows x 32 channels
-    const EncodeTiledFn encode = encode_tiled();
+    const tc::EncodeTiledFn encode = tc::encode_tiled();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
     const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)height, (cuuint64_t)cin,
                                 (cuuint64_t)batch};
@@ -834,7 +1192,6 @@ int launch_pass1_bf16(const void* x, const void* wpk, const void* b1, const void
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 void launch_pass2(const void* h, const void* x, const void* gate,
                   const void* sse_w, const void* sse_b, const void* w2,
                   const void* b2, const void* wsk, const void* bsk, void* out,
@@ -842,13 +1199,60 @@ void launch_pass2(const void* h, const void* x, const void* gate,
                   cudaStream_t stream) {
   const dim3 grid((hw + kPix2 - 1) / kPix2, (cout + kCoTile - 1) / kCoTile,
                   batch);
-  pass2_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(x),
+  pass2_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(h), static_cast<const float*>(x),
       static_cast<const float*>(gate), static_cast<const float*>(sse_w),
       static_cast<const float*>(sse_b), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(wsk),
-      static_cast<const float*>(bsk), static_cast<T*>(out), cin, cm, cout, hw,
+      static_cast<const float*>(bsk), static_cast<float*>(out), cin, cm, cout, hw,
       skip);
+}
+
+// a 3-D tensor map of a (B, C, HW) bf16 tensor, innermost first: boxes of
+// 64 pixels x 32 channels in the 128-byte swizzle
+int encode_chw_boxes(CUtensorMap* map, const void* base, int hw, int c, int batch) {
+  const tc::EncodeTiledFn encode = tc::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {(cuuint64_t)hw, (cuuint64_t)c, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)hw * 2, (cuuint64_t)c * hw * 2};
+  const cuuint32_t box[3] = {kBoxPix, tc::kKc, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool TMA>
+int launch_pass2_bf16(const void* h, const void* x, const void* gate, const void* ssep,
+                      const void* sse_b, const void* w2p, const void* b2, const void* wskp,
+                      const void* bsk, void* out, int batch, int cin, int cm, int cout, int hw,
+                      int skip, cudaStream_t stream) {
+  static bool smem_allowed = false;  // once per instantiation
+  if (!smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pass2_bf16_kernel<TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemP2);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_allowed = true;
+  }
+  CUtensorMap hmap, xmap;
+  memset(&hmap, 0, sizeof(hmap));
+  memset(&xmap, 0, sizeof(xmap));
+  if constexpr (TMA) {
+    int r = encode_chw_boxes(&hmap, h, hw, cm, batch);
+    if (r == 0 && skip == 2) r = encode_chw_boxes(&xmap, x, hw, cin, batch);
+    if (r != 0) return r;
+  }
+  const dim3 grid((hw + kPixP2 - 1) / kPixP2, (cout + tc::kCmb - 1) / tc::kCmb, batch);
+  pass2_bf16_kernel<TMA><<<grid, kThreadsP2, kSmemP2, stream>>>(
+      hmap, xmap, static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(x),
+      static_cast<const float*>(gate), static_cast<const __nv_bfloat16*>(w2p),
+      static_cast<const __nv_bfloat16*>(ssep), static_cast<const float*>(sse_b),
+      static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(wskp),
+      static_cast<const float*>(bsk), static_cast<__nv_bfloat16*>(out), cin, cm, cout, hw,
+      skip);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -932,20 +1336,36 @@ int fused_ir_chw_pass1(const void* x, const void* w1, const void* w1_packed,
 // h (B, Cm, H*W), x (B, Cin, H*W), out (B, Cout, H*W) in x's dtype;
 // gate (B, Cm), sse_w (Cm), sse_b (1), w2 (Cm, Cout), b2 (Cout) float32;
 // wsk (Cin, Cout) and bsk (Cout) float32, read only when skip == 2.
-// skip: 0 none, 1 identity, 2 conv. Returns cudaGetLastError().
+// skip: 0 none, 1 identity, 2 conv. float32 x reads w2, sse_w and wsk;
+// bfloat16 x reads their bf16 hi + lo splits in the product's order
+// (ops/fused_mbconv.py `pack_w2`, `pack_sse`, `pack_w1` of wsk; 16-byte
+// aligned) and with tma != 0 stages h and x by TMA (needs HW % 8 == 0 and
+// h, and x unless skip == 0, 16-byte aligned), else by plain loads.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for arguments it
+// cannot take).
 int fused_ir_chw_pass2(const void* h, const void* x, const void* gate,
                        const void* sse_w, const void* sse_b, const void* w2,
                        const void* b2, const void* wsk, const void* bsk,
-                       void* out, int batch, int cin, int cm, int cout, int hw,
-                       int skip, int bf16, void* stream) {
+                       const void* w2_packed, const void* sse_packed,
+                       const void* wsk_packed, void* out, int batch, int cin, int cm,
+                       int cout, int hw, int skip, int bf16, int tma, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (skip < 0 || skip > 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16)
-    launch_pass2<__nv_bfloat16>(h, x, gate, sse_w, sse_b, w2, b2, wsk, bsk,
-                                out, batch, cin, cm, cout, hw, skip, s);
-  else
-    launch_pass2<float>(h, x, gate, sse_w, sse_b, w2, b2, wsk, bsk, out,
-                        batch, cin, cm, cout, hw, skip, s);
+  if (skip < 0 || skip > 2 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16) {
+    auto misaligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 != 0; };
+    if (w2_packed == nullptr || sse_packed == nullptr || misaligned(w2_packed) ||
+        misaligned(sse_packed) || (skip == 2 && (wsk_packed == nullptr || misaligned(wsk_packed))))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (tma && (hw % 8 != 0 || misaligned(h) || (skip != 0 && misaligned(x))))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (tma)
+      return launch_pass2_bf16<true>(h, x, gate, sse_packed, sse_b, w2_packed, b2, wsk_packed,
+                                     bsk, out, batch, cin, cm, cout, hw, skip, s);
+    return launch_pass2_bf16<false>(h, x, gate, sse_packed, sse_b, w2_packed, b2, wsk_packed,
+                                    bsk, out, batch, cin, cm, cout, hw, skip, s);
+  }
+  launch_pass2(h, x, gate, sse_w, sse_b, w2, b2, wsk, bsk, out, batch, cin, cm, cout,
+                      hw, skip, s);
   return static_cast<int>(cudaGetLastError());
 }
 

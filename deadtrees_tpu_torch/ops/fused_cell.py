@@ -3,7 +3,8 @@ decoder cells (C_in ≥ 64) of the ``fused_decoder="nhwc"`` route.
 
 Counterpart of ``deadtrees_tpu.ops.fused_cell.fused_ir_fat``. The block
 runs as two hand-written CUDA kernels (``csrc/fused_ir_nhwc.cu``, built at
-first CUDA use by ``ops/_build.py``):
+first CUDA use by ``ops/_build.py``; for bf16 x pass 1 runs its 1×1
+expand on the tensor cores):
 
   pass 1:  y = act(x·W1 + b1), zero outside the image
            h = act(dw_k×k(y) + b_dw)             stored in x's dtype
@@ -24,7 +25,7 @@ device, dtype or shape it cannot take raises.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +42,7 @@ from deadtrees_tpu_torch.ops.fused_mbconv import (
     _ptr,
     _resolve_skip,
     cse_gate,
+    pack_w1,
 )
 from deadtrees_tpu_torch.ops.launches import LAUNCHES
 
@@ -107,19 +109,58 @@ def fused_ir_fat_reference(x, fp, *, activation="hswish", ksize=3, skip="auto"):
 # ---------------------------------------------------------------------------
 
 
+def pass1_tile(ksize: int, x_dtype: torch.dtype) -> Tuple[int, int]:
+    """(rows, columns) of the NHWC pass 1's output tile: 8 × 32 for
+    bfloat16 x (the tensor-core kernel), 14 × 14 (k = 3) or 12 × 12 (k =
+    5) for float32 x. ``csrc/fused_ir_nhwc.cu`` reports the same
+    (``fused_ir_nhwc_tile_size``), checked when the library loads."""
+    if x_dtype == torch.bfloat16:
+        return 8, 32
+    side = 16 - 2 * (ksize // 2)
+    return side, side
+
+
+def pass1_tiles(hh: int, ww: int, ksize: int, x_dtype: torch.dtype) -> int:
+    """The pass 1's output tiles on an H × W image: psum's rows."""
+    th, tw = pass1_tile(ksize, x_dtype)
+    return -(-hh // th) * -(-ww // tw)
+
+
+def pass1_staging(x: torch.Tensor) -> Optional[str]:
+    """How the tensor-core pass 1 stages bf16 x: ``"tma"`` (C_in % 8 == 0
+    and x 16-byte aligned: TMA needs 16-byte pixel strides) or
+    ``"plain"``; None for float32 x (the float32 kernel)."""
+    if x.dtype != torch.bfloat16:
+        return None
+    return "tma" if x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 else "plain"
+
+
+def bind_kernels(lib):
+    """Declare the C interface of a build of ``csrc/fused_ir_nhwc.cu``
+    and check that its pass-1 tiles are :func:`pass1_tile`'s."""
+    lib.fused_ir_nhwc_tile_size.argtypes = [_I, _I, _I]
+    lib.fused_ir_nhwc_tile_size.restype = _I
+    lib.fused_ir_nhwc_pass1.argtypes = [_P] * 8 + [_I] * 10 + [_P]
+    lib.fused_ir_nhwc_pass1.restype = _I
+    lib.fused_ir_nhwc_pass2.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    lib.fused_ir_nhwc_pass2.restype = _I
+    for ksize in (3, 5):
+        for dtype in (torch.float32, torch.bfloat16):
+            want = pass1_tile(ksize, dtype)
+            got = tuple(lib.fused_ir_nhwc_tile_size(ksize, int(dtype == torch.bfloat16), axis)
+                        for axis in (0, 1))
+            if got != want:
+                raise RuntimeError(f"fused_ir_nhwc.cu tiles k{ksize} {dtype} as {got}, "
+                                   f"pass1_tile says {want}")
+    return lib
+
+
 def _kernels():
     global _lib
     if _lib is None:
         from deadtrees_tpu_torch.ops import _build
 
-        lib = _build.load("fused_ir_nhwc")
-        lib.fused_ir_nhwc_tile_size.argtypes = [_I]
-        lib.fused_ir_nhwc_tile_size.restype = _I
-        lib.fused_ir_nhwc_pass1.argtypes = [_P] * 7 + [_I] * 9 + [_P]
-        lib.fused_ir_nhwc_pass1.restype = _I
-        lib.fused_ir_nhwc_pass2.argtypes = [_P] * 10 + [_I] * 8 + [_P]
-        lib.fused_ir_nhwc_pass2.restype = _I
-        _lib = lib
+        _lib = bind_kernels(_build.load("fused_ir_nhwc"))
     return _lib
 
 
@@ -131,8 +172,12 @@ def _on_cuda(x: torch.Tensor) -> None:
 def nhwc_pass1(x, fp, *, activation="hswish", ksize=3, h_dtype=None,
                count="fused_ir_fat_pass1"):
     """Pass 1 on the card: (h in ``h_dtype`` (default x's dtype),
-    (B, n_tiles, C_mid) float32 partial sums). Raises for a tensor that is
-    not on a CUDA device; ``count`` names the launch count it raises."""
+    (B, n_tiles, C_mid) float32 partial sums, one row per
+    :func:`pass1_tile` tile). bf16 x runs the tensor-core kernel on
+    ``fp.w1_packed`` (computed here when ``fp`` lacks it), staged as
+    :func:`pass1_staging` says; float32 x runs the float32 kernel. Raises
+    for a tensor that is not on a CUDA device; ``count`` names the launch
+    count it raises."""
     _on_cuda(x)
     _cuda_check(x, fp)
     h_dtype = h_dtype or x.dtype
@@ -143,16 +188,19 @@ def nhwc_pass1(x, fp, *, activation="hswish", ksize=3, h_dtype=None,
     lib = _kernels()
     bsz, hh, ww, cin = x.shape
     cm = fp.w1.shape[1]
-    tile = lib.fused_ir_nhwc_tile_size(ksize)
-    n_tiles = -(-hh // tile) * -(-ww // tile)
+    bf16 = x.dtype == torch.bfloat16
+    packed = None
+    if bf16:
+        packed = fp.w1_packed if fp.w1_packed is not None else pack_w1(fp.w1)
     h = torch.empty((bsz, hh, ww, cm), dtype=h_dtype, device=x.device)
-    psum = torch.empty((bsz, n_tiles, cm), dtype=torch.float32, device=x.device)
+    psum = torch.empty((bsz, pass1_tiles(hh, ww, ksize, x.dtype), cm), dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         status = lib.fused_ir_nhwc_pass1(
-            x.data_ptr(), fp.w1.data_ptr(), fp.b1.data_ptr(), fp.dw.data_ptr(),
-            fp.b_dw.data_ptr(), h.data_ptr(), psum.data_ptr(),
+            x.data_ptr(), fp.w1.data_ptr(), _ptr(packed), fp.b1.data_ptr(),
+            fp.dw.data_ptr(), fp.b_dw.data_ptr(), h.data_ptr(), psum.data_ptr(),
             bsz, cin, cm, hh, ww, ksize, ACTIVATIONS.index(activation),
-            int(x.dtype == torch.bfloat16), int(h_dtype == torch.bfloat16),
+            int(bf16), int(h_dtype == torch.bfloat16), int(pass1_staging(x) == "tma"),
             torch.cuda.current_stream().cuda_stream,
         )
     _check_status(status, "fused_ir_nhwc_pass1")

@@ -3,7 +3,8 @@ hot op) on NCHW tensors.
 
 Counterpart of ``deadtrees_tpu.ops.fused_mbconv.fused_inverted_residual_chw``.
 The block runs as two hand-written CUDA kernels (``csrc/fused_ir_chw.cu``,
-built at first CUDA use by ``ops/_build.py``):
+built at first CUDA use by ``ops/_build.py``; for bf16 x both run their
+1×1 products on the tensor cores):
 
   pass 1:  y = act(x·W1 + b1), zero outside the image
            h = act(dw_k×k(y) + b_dw)             stored in x's dtype
@@ -44,9 +45,11 @@ SKIPS = ("auto", "identity", "conv", "none")
 
 class FoldedBlockParams(NamedTuple):
     """BN-folded weights of one InvertedResidual (inference), float32;
-    ``w1_packed`` is W1 split into bf16 hi and lo for the tensor-core
-    pass 1 (:func:`pack_w1`), filled by :func:`fold_inverted_residual` and
-    computed by the wrapper when a hand-built tuple lacks it."""
+    the ``*_packed`` fields are the bf16 hi + lo splits that the
+    tensor-core kernels read (W1 for pass 1, W2, Wsk and w_sse for pass 2:
+    :func:`pack_w1`, :func:`pack_sse`), filled by
+    :func:`fold_inverted_residual` and computed by the wrappers when a
+    hand-built tuple lacks them."""
 
     w1: torch.Tensor  # (C_in, C_mid) expand pointwise (folded bn)
     b1: torch.Tensor  # (C_mid,)
@@ -63,10 +66,13 @@ class FoldedBlockParams(NamedTuple):
     wsk: Optional[torch.Tensor]  # (C_in, C_out) skip conv (folded bn) or None
     bsk: Optional[torch.Tensor]
     w1_packed: Optional[torch.Tensor] = None  # bf16, pack_w1(w1)
+    w2_packed: Optional[torch.Tensor] = None  # bf16, pack_w1(w2)
+    wsk_packed: Optional[torch.Tensor] = None  # bf16, pack_w1(wsk), or None
+    sse_packed: Optional[torch.Tensor] = None  # bf16, pack_sse(sse_w)
 
 
-# the tensor-core pass 1's blocking (csrc/tc_expand.cuh kCmb, kKc)
-PACK_MID = 64  # mid channels a block
+# the tensor-core products' blocking (csrc/tc_expand.cuh kCmb, kKc)
+PACK_MID = 64  # product rows (mid channels in pass 1, outputs in pass 2) a block
 PACK_IN = 32  # input channels a chunk
 
 
@@ -85,7 +91,9 @@ def pack_w1(w1: torch.Tensor) -> torch.Tensor:
     blocks: (ceil(C_mid/64), ceil(C_in/32), k16 step 2, [hi, lo], m16 tile
     4, lane 32, 8). Lane l = 4g + t holds the mma.m16n8k16 A fragment of
     its 16×16 tile of W1ᵀ: rows g, g+8 × columns 2t, 2t+1 in register
-    order (row g, row g+8) for columns 2t.., then the same for 2t+8.."""
+    order (row g, row g+8) for columns 2t.., then the same for 2t+8..
+    Pass 2 packs W2 (C_mid, C_out) and Wsk (C_in, C_out) the same way:
+    their rows are then the output channels."""
     cin, cm = w1.shape
     mb, kc = -(-cm // PACK_MID), -(-cin // PACK_IN)
     wt = torch.zeros((mb * PACK_MID, kc * PACK_IN), dtype=torch.float32, device=w1.device)
@@ -96,6 +104,22 @@ def pack_w1(w1: torch.Tensor) -> torch.Tensor:
     # -> (mb, kc, ks, hl, mt, g, t, ch, rh, e)
     return hl.permute(1, 5, 6, 0, 2, 4, 8, 7, 3, 9).reshape(
         mb, kc, 2, 2, 4, 32, 8).contiguous()
+
+
+def pack_sse(sse_w: torch.Tensor) -> torch.Tensor:
+    """w_sse (C_mid, 1) float32 → the sSE operand of the tensor-core pass
+    2: one m16 A tile a k16 step whose row 0 is hi(w_sse) and row 1
+    lo(w_sse) (:func:`split_w1`), rows 2-15 zero, so that one product gives
+    both halves of the logit; (ceil(C_mid/32), k16 step 2, lane 32, 8) bf16
+    in the fragment order of :func:`pack_w1`."""
+    cm = sse_w.shape[0]
+    kc = -(-cm // PACK_IN)
+    a = torch.zeros((16, kc * PACK_IN), dtype=torch.float32, device=sse_w.device)
+    hi, lo = split_w1(sse_w[:, 0])
+    a[0, :cm], a[1, :cm] = hi.float(), lo.float()
+    # M = rh·8 + g; K = kc·32 + ks·16 + ch·8 + t·2 + e -> (kc, ks, g, t, ch, rh, e)
+    a = a.reshape(2, 8, kc, 2, 2, 4, 2).permute(2, 3, 1, 5, 4, 0, 6)
+    return a.reshape(kc, 2, 32, 8).to(torch.bfloat16).contiguous()
 
 
 def fold_bn_into_conv(
@@ -140,12 +164,14 @@ def fold_inverted_residual(block: InvertedResidual) -> FoldedBlockParams:
     def c(t):
         return t.detach().float().contiguous()
 
+    sse_w = c(conv1x1(sse[0]))
     return FoldedBlockParams(
         w1=w1, b1=b1, dw=dw, b_dw=b_dw,
         cse_w1=c(conv1x1(cse[1])), cse_b1=c(cse[1].bias),
         cse_w2=c(conv1x1(cse[3])), cse_b2=c(cse[3].bias),
-        sse_w=c(conv1x1(sse[0])), sse_b=c(sse[0].bias),
-        w2=w2, b2=b2, wsk=wsk, bsk=bsk, w1_packed=pack_w1(w1),
+        sse_w=sse_w, sse_b=c(sse[0].bias),
+        w2=w2, b2=b2, wsk=wsk, bsk=bsk, w1_packed=pack_w1(w1), w2_packed=pack_w1(w2),
+        wsk_packed=None if wsk is None else pack_w1(wsk), sse_packed=pack_sse(sse_w),
     )
 
 
@@ -264,7 +290,7 @@ def bind_kernels(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_ir_chw_tile_size.restype = _I
     lib.fused_ir_chw_pass1.argtypes = [_P] * 8 + [_I] * 9 + [_P]
     lib.fused_ir_chw_pass1.restype = _I
-    lib.fused_ir_chw_pass2.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+    lib.fused_ir_chw_pass2.argtypes = [_P] * 13 + [_I] * 8 + [_P]
     lib.fused_ir_chw_pass2.restype = _I
     return lib
 
@@ -286,17 +312,25 @@ def _cuda_check(x: torch.Tensor, fp: FoldedBlockParams) -> None:
     for name, t in fp._asdict().items():
         if t is None:
             continue
-        dtype = torch.bfloat16 if name == "w1_packed" else torch.float32
+        dtype = torch.bfloat16 if name.endswith("_packed") else torch.float32
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
                 f"folded {name} must be a contiguous {dtype} tensor on {x.device}"
             )
-    if fp.w1_packed is not None:
-        cin, cm = fp.w1.shape
-        want = (-(-cm // PACK_MID), -(-cin // PACK_IN), 2, 2, 4, 32, 8)
-        if tuple(fp.w1_packed.shape) != want:
-            raise ValueError(f"folded w1_packed has shape {tuple(fp.w1_packed.shape)}, "
-                             f"expected {want} (pack_w1(w1))")
+    cin, cm = fp.w1.shape
+    cout = fp.w2.shape[1]
+
+    def blocks(rows, k):
+        return (-(-rows // PACK_MID), -(-k // PACK_IN), 2, 2, 4, 32, 8)
+
+    for name, want, how in (("w1_packed", blocks(cm, cin), "pack_w1(w1)"),
+                            ("w2_packed", blocks(cout, cm), "pack_w1(w2)"),
+                            ("wsk_packed", blocks(cout, cin), "pack_w1(wsk)"),
+                            ("sse_packed", (-(-cm // PACK_IN), 2, 32, 8), "pack_sse(sse_w)")):
+        t = getattr(fp, name)
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f"folded {name} has shape {tuple(t.shape)}, expected {want} "
+                             f"({how})")
 
 
 def _check_status(status: int, name: str) -> None:
@@ -353,9 +387,35 @@ def chw_pass1(x, fp, *, activation="hswish", ksize=3):
     return h, psum
 
 
+def pass2_staging(h: torch.Tensor, x: torch.Tensor, skip: str) -> Optional[str]:
+    """How the tensor-core pass 2 stages bf16 h and x: ``"tma"`` (H·W % 8
+    == 0, and h and, unless ``skip`` is "none", x 16-byte aligned: TMA
+    needs 16-byte row strides) or ``"plain"``; None for float32 x (the
+    float32 kernel)."""
+    if x.dtype != torch.bfloat16:
+        return None
+    aligned = h.data_ptr() % 16 == 0 and (skip == "none" or x.data_ptr() % 16 == 0)
+    return "tma" if aligned and (x.shape[-2] * x.shape[-1]) % 8 == 0 else "plain"
+
+
+def pass2_operands(fp: FoldedBlockParams, skip: str):
+    """(W2, w_sse, Wsk) as the tensor-core pass 2 reads them: the folded
+    packed fields, computed here when ``fp`` lacks them (Wsk None unless
+    ``skip`` is "conv")."""
+    w2p = fp.w2_packed if fp.w2_packed is not None else pack_w1(fp.w2)
+    ssep = fp.sse_packed if fp.sse_packed is not None else pack_sse(fp.sse_w)
+    wskp = None
+    if skip == "conv":
+        wskp = fp.wsk_packed if fp.wsk_packed is not None else pack_w1(fp.wsk)
+    return w2p, ssep, wskp
+
+
 def chw_pass2(h, x, gate, fp, *, skip="auto"):
     """Pass 2: the block output in x's dtype. A CUDA tensor launches the
-    kernel; a CPU tensor takes the plain version."""
+    kernel; a CPU tensor takes the plain version. bf16 x runs the
+    tensor-core kernel on the packed W2, w_sse and Wsk
+    (:func:`pass2_operands`), staged by TMA or plain loads
+    (:func:`pass2_staging`); float32 x runs the float32 kernel."""
     if x.device.type == "cpu":
         return chw_pass2_reference(h, x, gate, fp, skip=skip)
     if x.device.type != "cuda":
@@ -373,14 +433,19 @@ def chw_pass2(h, x, gate, fp, *, skip="auto"):
     lib = _kernels()
     out = torch.empty((bsz, cout, hh, ww), dtype=x.dtype, device=x.device)
     conv = skip == "conv"
+    bf16 = x.dtype == torch.bfloat16
+    w2p = ssep = wskp = None
+    if bf16:
+        w2p, ssep, wskp = pass2_operands(fp, skip)
     with torch.cuda.device(x.device):
         status = lib.fused_ir_chw_pass2(
             h.data_ptr(), x.data_ptr(), gate.data_ptr(), fp.sse_w.data_ptr(),
             fp.sse_b.data_ptr(), fp.w2.data_ptr(), fp.b2.data_ptr(),
             _ptr(fp.wsk) if conv else None, _ptr(fp.bsk) if conv else None,
+            _ptr(w2p), _ptr(ssep), _ptr(wskp),
             out.data_ptr(), bsz, cin, cm, cout, hh * ww,
-            ("none", "identity", "conv").index(skip),
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            ("none", "identity", "conv").index(skip), int(bf16),
+            int(pass2_staging(h, x, skip) == "tma"), torch.cuda.current_stream().cuda_stream,
         )
     _check_status(status, "fused_ir_chw_pass2")
     LAUNCHES["fused_ir_chw_pass2"] += 1

@@ -145,3 +145,51 @@ def test_nhwc_wrappers_reject_what_the_kernels_cannot_take():
         tfm.fused_inverted_residual(x, fp._replace(dw=torch.zeros((5, 5, 16))))
     with pytest.raises(ValueError, match="device"):  # the passes alone need the card
         tfc.nhwc_pass1(x, fp)
+
+
+def _cuda_constants(name):
+    """The ``constexpr int`` values of ``csrc/<name>.cu``."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tfc.__file__).parent / "csrc" / f"{name}.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_nhwc_psum_geometry_follows_the_bf16_tile():
+    """bf16 x tiles the output 8 × 32 (the tensor-core pass 1), float32 x
+    14 × 14 or 12 × 12: psum's rows per image, on both axes, are the
+    kernel's tiles (the constants of csrc/fused_ir_nhwc.cu), and a library
+    that tiles otherwise is refused when it is bound."""
+    const = _cuda_constants("fused_ir_nhwc")
+    for k in (3, 5):
+        assert tfc.pass1_tile(k, torch.bfloat16) == (const["kOtHN"], const["kOtWN"]) == (8, 32)
+        side = const["kSide"] - 2 * (k // 2)
+        assert tfc.pass1_tile(k, torch.float32) == (side, side)
+    assert tfc.pass1_tiles(40, 72, 3, torch.bfloat16) == 5 * 3
+    assert tfc.pass1_tiles(41, 64, 5, torch.bfloat16) == 6 * 2
+    assert tfc.pass1_tiles(40, 72, 3, torch.float32) == 3 * 6
+    assert tfc.pass1_tiles(40, 72, 5, torch.float32) == 4 * 6
+    # the per-tile sums of h over those tiles add up to the per-image sums
+    rng = np.random.default_rng(3)
+    _, fp = _random_folded(rng, 16, 16, 16, 3, "identity")
+    x = torch.from_numpy(rng.normal(size=(2, 20, 40, 16)).astype(np.float32))
+    h, sums = tfc.nhwc_pass1_reference(x, fp)
+    th, tw = tfc.pass1_tile(3, torch.bfloat16)
+    tiles = [h[:, y:y + th, c:c + tw].sum((1, 2)) for y in range(0, 20, th)
+             for c in range(0, 40, tw)]
+    assert len(tiles) == tfc.pass1_tiles(20, 40, 3, torch.bfloat16)
+    torch.testing.assert_close(torch.stack(tiles, 1).sum(1), sums[:, 0], rtol=1e-5, atol=1e-4)
+
+    class FakeLib:
+        def __init__(self, tile):
+            for name in ("fused_ir_nhwc_pass1", "fused_ir_nhwc_pass2"):
+                setattr(self, name, lambda *a: 0)
+            self.fused_ir_nhwc_tile_size = tile
+
+    def tile_of(k, bf16, axis):
+        return (8, 32)[axis] if bf16 else 16 - 2 * (k // 2)
+
+    assert tfc.bind_kernels(FakeLib(lambda *a: tile_of(*a))) is not None
+    with pytest.raises(RuntimeError, match="tiles"):
+        tfc.bind_kernels(FakeLib(lambda k, bf16, axis: 16 - 2 * (k // 2)))

@@ -162,8 +162,10 @@ def test_jax_fold_is_what_the_kernel_reads():
     """The folded tensors the kernels take have the JAX package's
     orientation (output channel last), so one FoldedBlockParams layout
     serves both packages: the JAX fields in JAX's order, then the port's
-    optional bf16 split of W1 for its tensor-core pass 1."""
+    optional bf16 splits for its tensor-core passes (W1 for pass 1; W2,
+    Wsk and w_sse for pass 2)."""
     n = len(jfm.FoldedBlockParams._fields)
+    packed = ("w1_packed", "w2_packed", "wsk_packed", "sse_packed")
     assert tfm.FoldedBlockParams._fields[:n] == jfm.FoldedBlockParams._fields
-    assert tfm.FoldedBlockParams._fields[n:] == ("w1_packed",)
-    assert tfm.FoldedBlockParams._field_defaults == {"w1_packed": None}
+    assert tfm.FoldedBlockParams._fields[n:] == packed
+    assert tfm.FoldedBlockParams._field_defaults == dict.fromkeys(packed)

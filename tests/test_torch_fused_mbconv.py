@@ -237,15 +237,21 @@ def test_split_w1_block_matches_jax_bfloat16(cin, cout):
 
 
 def test_fold_fills_the_packed_weights():
-    """fold_inverted_residual stores pack_w1(w1), the operand that the
-    wrapper computes for a hand-built FoldedBlockParams without it."""
+    """fold_inverted_residual stores pack_w1(w1) (and pass 2's operands:
+    pack_w1(w2), pack_w1(wsk), pack_sse(sse_w)), the operands that the
+    wrappers compute for a hand-built FoldedBlockParams without them."""
     _, _, variables = _flax_block(40, 24, 8, seed=6)
     fp = tfm.fold_inverted_residual(_carried_block(variables, 40, 24))
     assert fp.w1_packed is not None
     assert torch.equal(fp.w1_packed, tfm.pack_w1(fp.w1))
-    hand = tfm.FoldedBlockParams(*fp[:-1])
+    n = len(jfm.FoldedBlockParams._fields)
+    hand = tfm.FoldedBlockParams(*fp[:n])
     assert hand.w1_packed is None
     assert torch.equal(tfm.pack_w1(hand.w1), fp.w1_packed)
+    w2p, ssep, wskp = tfm.pass2_operands(hand, "conv")
+    assert torch.equal(w2p, fp.w2_packed) and torch.equal(wskp, fp.wsk_packed)
+    assert torch.equal(ssep, fp.sse_packed)
+    assert tfm.pass2_operands(hand, "identity")[2] is None
     x = torch.zeros((1, 40, 8, 8))
     tfm._cuda_check(x, fp)  # the bf16 field passes the kernel's checks
     with pytest.raises(ValueError, match="w1_packed"):
@@ -266,3 +272,114 @@ def test_a_probe_build_is_a_library_of_its_own():
     plain, variant = _build._target("fused_ir_chw"), _build._target("fused_ir_chw", probe)
     assert plain.name.startswith("fused_ir_chw-") and plain.parent == variant.parent
     assert variant.name.startswith("fused_ir_chw-dt_pass1_probe-") and variant != plain
+
+
+# ---------------------------------------------------------------------------
+# pass 2's operands for the tensor cores: W2ᵀ, (W2 ⊙ gate)ᵀ, the sSE tile, Wskᵀ
+# ---------------------------------------------------------------------------
+
+
+def _sse_unpack(packed, cm):
+    """The sSE A tiles (16 × K) back from pack_sse's fragment order, by the
+    same mma.m16n8k16 A layout as _fragment_unpack."""
+    p = packed.float().numpy()
+    kc = p.shape[0]
+    out = np.zeros((16, kc * 32), np.float32)
+    for c in range(kc):
+        for ks in range(2):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                c0 = c * 32 + ks * 16 + 2 * t
+                for j, (dr, dc) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+                    out[g + dr, c0 + dc: c0 + dc + 2] = p[c, ks, lane, 2 * j: 2 * j + 2]
+    return out[:, :cm]
+
+
+@pytest.mark.parametrize("cin,cm,cout", [(16, 16, 16), (40, 72, 40), (688, 688, 256)])
+def test_pass2_packing_follows_the_mma_fragment_layout(cin, cm, cout):
+    """W2ᵀ and Wskᵀ are packed as pack_w1 packs W1ᵀ (their rows the output
+    channels), w_sse as one m16 tile a k16 step with hi in row 0 and lo in
+    row 1; hi + lo rebuilds each within 2⁻¹⁶ of its float32 weights."""
+    rng = np.random.default_rng(cm + cout)
+    w2 = torch.tensor(rng.normal(0, cm ** -0.5, (cm, cout)), dtype=torch.float32)
+    wsk = torch.tensor(rng.normal(0, cin ** -0.5, (cin, cout)), dtype=torch.float32)
+    sse = torch.tensor(rng.normal(0, cm ** -0.5, (cm, 1)), dtype=torch.float32)
+    for w, k in ((w2, cm), (wsk, cin)):
+        packed = tfm.pack_w1(w)
+        assert tuple(packed.shape) == (-(-cout // 64), -(-k // 32), 2, 2, 4, 32, 8)
+        got = _fragment_unpack(packed, k, cout)
+        hi, lo = tfm.split_w1(w)
+        np.testing.assert_array_equal(got[0], hi.float().t().numpy())
+        np.testing.assert_array_equal(got[1], lo.float().t().numpy())
+        err = np.abs(got[0] + got[1] - w.t().numpy())
+        assert (err <= 2.0 ** -16 * np.abs(w.t().numpy())).all(), err.max()
+    packed = tfm.pack_sse(sse)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert tuple(packed.shape) == (-(-cm // 32), 2, 32, 8)
+    tile = _sse_unpack(packed, cm)
+    hi, lo = tfm.split_w1(sse[:, 0])
+    np.testing.assert_array_equal(tile[0], hi.float().numpy())
+    np.testing.assert_array_equal(tile[1], lo.float().numpy())
+    assert not tile[2:].any() and not _sse_unpack(packed, packed.shape[0] * 32)[:, cm:].any()
+    err = np.abs(tile[0] + tile[1] - sse[:, 0].numpy())
+    assert (err <= 2.0 ** -16 * np.abs(sse[:, 0].numpy())).all(), err.max()
+
+
+def _bf16_split(a):
+    """hi + lo of a float32 numpy array, as bf16 values in float32."""
+    hi, lo = tfm.split_w1(torch.from_numpy(a))
+    return hi.float().numpy(), lo.float().numpy()
+
+
+def _tensor_core_pass2(h, x, gate, fp, skip):
+    """The tensor-core pass 2's arithmetic in numpy float32, from the
+    packed operands it reads: z = (hi + lo)(w_sse)·h; acc_p = W2ᵀh with
+    W2 = hi + lo; acc_g = (W2 ⊙ gate)ᵀh, the gated weights formed per image
+    from hi + lo and split again into hi + lo (+ Wskᵀx with Wsk = hi + lo);
+    out = acc_g + σ(z + b_sse)·acc_p + b2 (+ bsk, or + x)."""
+    cin, cm = fp.w1.shape
+    cout = fp.w2.shape[1]
+    w2 = _fragment_unpack(tfm.pack_w1(fp.w2), cm, cout)  # [hi, lo] of W2ᵀ
+    sse = _sse_unpack(tfm.pack_sse(fp.sse_w), cm)
+    hf = h.float().numpy()  # (B, C_mid, P) as stored
+    xf = x.float().numpy()
+    out = np.empty((hf.shape[0], cout, hf.shape[2]), np.float32)
+    for b in range(hf.shape[0]):
+        z = sse[0] @ hf[b] + sse[1] @ hf[b]
+        s = 1.0 / (1.0 + np.exp(-(z + fp.sse_b.numpy()[0])))
+        acc_p = w2[0] @ hf[b] + w2[1] @ hf[b]
+        ghi, glo = _bf16_split((w2[0] + w2[1]) * gate.numpy()[b][None, :])
+        acc_g = ghi @ hf[b] + glo @ hf[b]
+        o = acc_g + s[None, :] * acc_p + fp.b2.numpy()[:, None]
+        if skip == "conv":
+            wsk = _fragment_unpack(tfm.pack_w1(fp.wsk), cin, cout)
+            o = o + wsk[0] @ xf[b] + wsk[1] @ xf[b] + fp.bsk.numpy()[:, None]
+        elif skip == "identity":
+            o = o + xf[b]
+        out[b] = o
+    return out
+
+
+@pytest.mark.parametrize("cin,cout,skip", [(24, 16, "conv"), (40, 40, "identity"),
+                                           (72, 48, "none")])
+def test_tensor_core_pass2_arithmetic_matches_jax_bfloat16(cin, cout, skip):
+    """The rewritten pass 2, (W2 ⊙ gate)ᵀh + s·(W2ᵀh) with hi + lo weights,
+    after the plain pass 1 (h rounded to bf16) and the cSE gate, against
+    the JAX kernel (interpret mode) on bf16 x, under the bf16 bar of
+    test_fused_chw_bfloat16_matches_jax."""
+    rng = np.random.default_rng(cin + cout)
+    fp_j, fp_t = _random_folded(rng, cin, cin, cout, 3, "conv" if skip == "conv" else "none")
+    x = rng.normal(size=(2, cin, 16, 16)).astype(np.float32)
+    x_j = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(jfm.fused_inverted_residual_chw(
+        x_j, fp_j, interpret=True, skip=skip).astype(jnp.float32))
+    x_t = torch.from_numpy(np.asarray(x_j.astype(jnp.float32))).to(torch.bfloat16)
+    h, sums = tfm.chw_pass1_reference(x_t, fp_t)
+    gate = tfm.cse_gate(sums.sum(1), fp_t, 16 * 16)
+    got = _tensor_core_pass2(h.reshape(2, cin, -1), x_t.reshape(2, cin, -1), gate, fp_t, skip)
+    got = torch.from_numpy(got).to(torch.bfloat16).float().numpy().reshape(want.shape)
+    err = np.abs(got - want).max()
+    assert err < 2e-2 * max(1.0, np.abs(want).max()), f"max err {err}"
+    # and it is the plain pass 2 up to the split's 2⁻¹⁶
+    plain = tfm.chw_pass2_reference(h, x_t, gate, fp_t, skip=skip).float().numpy()
+    assert np.abs(got - plain).max() < 2e-2 * max(1.0, np.abs(plain).max())

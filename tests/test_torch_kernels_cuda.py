@@ -127,6 +127,140 @@ def test_wrapper_raises_on_what_the_kernel_cannot_take(card):
         fm.fused_inverted_residual_chw(x, cpu_fp)
 
 
+def _close(got, ref, dtype):
+    return float((got.float() - ref.float()).abs().max()) < BAR[dtype] * max(
+        1.0, float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize(
+    "cin,cout,hh,ww,skip,stage",
+    [
+        (48, 32, 40, 72, "conv", "tma"),  # C_out < 64, two boxes of 64 pixels a block
+        (40, 40, 33, 17, "identity", "plain"),  # HW % 8 != 0; C_mid % 32 != 0
+        (72, 96, 24, 24, "none", "tma"),  # C_out % 64 != 0, C_mid % 32 != 0
+        (128, 40, 45, 70, "none", "plain"),  # HW % 8 != 0, four chunks
+        (104, 104, 16, 20, "identity", "tma"),  # the last pixel block: 64 of 128
+        (88, 48, 37, 40, "conv", "tma"),  # ragged pixel blocks, conv over 3 chunks of x
+        (688, 256, 32, 32, "conv", "tma"),  # the flagship's widest cell
+        (16, 16, 64, 64, "identity", "tma"),  # one chunk, a third of it channels
+    ],
+)
+def test_bf16_pass2_matches_plain(card, cin, cout, hh, ww, skip, stage):
+    """The tensor-core pass 2 against its plain version on the same h, x
+    and gate, through both stagings and every skip."""
+    gen = torch.Generator().manual_seed(cin * 100 + cout + hh)
+    fp = _folded(cin, cout, 3, skip == "conv", gen, card)
+    x = torch.randn((2, cin, hh, ww), generator=gen).to(card, torch.bfloat16)
+    h = torch.randn((2, cin, hh, ww), generator=gen).to(card, torch.bfloat16)
+    gate = torch.rand((2, cin), generator=gen).to(card)
+    assert fm.pass2_staging(h, x, skip) == stage
+    ref = fm.chw_pass2_reference(h, x, gate, fp, skip=skip)
+    reset_launch_counts()
+    got = fm.chw_pass2(h, x, gate, fp, skip=skip)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_ir_chw_pass2"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (2, cout, hh, ww)
+    assert _close(got, ref, torch.bfloat16), float((got.float() - ref.float()).abs().max())
+
+
+@pytest.mark.parametrize("skip", ["conv", "identity"])
+def test_bf16_pass2_on_a_misaligned_view_and_without_packed_weights(card, skip):
+    """x one element into its storage is not 16-byte aligned: pass 2 then
+    stages by plain loads (x is read for the skip), with the result of the
+    TMA staging on an aligned copy; a hand-built FoldedBlockParams without
+    the packed fields gets them computed by the wrapper, as fold fills
+    them."""
+    gen = torch.Generator().manual_seed(21)
+    fp = _folded(64, 64, 3, skip == "conv", gen, card)
+    shape = (2, 64, 24, 32)
+    n = 2 * 64 * 24 * 32
+    x = torch.randn((n + 1,), generator=gen).to(card, torch.bfloat16)[1:].view(shape)
+    h = torch.randn(shape, generator=gen).to(card, torch.bfloat16)
+    gate = torch.rand((2, 64), generator=gen).to(card)
+    assert fm.pass2_staging(h, x, skip) == "plain"
+    assert fm.pass2_staging(h, x, "none") == "tma"  # x is not read
+    ref = fm.chw_pass2_reference(h, x, gate, fp, skip=skip)
+    got = fm.chw_pass2(h, x, gate, fp, skip=skip)
+    w2p, ssep, wskp = fm.pass2_operands(fp, skip)
+    packed = fp._replace(w2_packed=w2p, sse_packed=ssep, wsk_packed=wskp)
+    x2 = x.contiguous().clone()
+    assert fm.pass2_staging(h, x2, skip) == "tma"
+    got2 = fm.chw_pass2(h, x2, gate, packed, skip=skip)
+    torch.cuda.synchronize()
+    assert _close(got, ref, torch.bfloat16)
+    assert torch.equal(got, got2)
+
+
+def test_bf16_pass2_rejects_malformed_packed_weights(card):
+    gen = torch.Generator().manual_seed(2)
+    fp = _folded(64, 32, 3, True, gen, card)
+    x = torch.randn((1, 64, 8, 8), generator=gen).to(card, torch.bfloat16)
+    h = torch.randn((1, 64, 8, 8), generator=gen).to(card, torch.bfloat16)
+    gate = torch.rand((1, 64), generator=gen).to(card)
+    w2p, ssep, wskp = fm.pass2_operands(fp, "conv")
+    with pytest.raises(ValueError, match="w2_packed"):
+        fm.chw_pass2(h, x, gate, fp._replace(w2_packed=w2p.float()))
+    with pytest.raises(ValueError, match="sse_packed"):
+        fm.chw_pass2(h, x, gate, fp._replace(sse_packed=ssep[:1].contiguous()))
+    with pytest.raises(ValueError, match="wsk_packed"):
+        fm.chw_pass2(h, x, gate, fp._replace(wsk_packed=wskp[:, :1].contiguous()))
+
+
+@pytest.mark.parametrize(
+    "cin,hh,ww,ksize,act,stage,h_dtype",
+    [
+        (64, 20, 44, 3, "hswish", "tma", torch.bfloat16),  # H % 8 != 0, W % 32 != 0
+        (64, 20, 44, 3, "hswish", "tma", torch.float32),  # the same as kernel 3
+        (96, 16, 64, 3, "hswish", "tma", torch.bfloat16),  # whole tiles
+        (688, 9, 33, 3, "hswish", "tma", torch.bfloat16),  # the widest cell: 22 chunks
+        (688, 9, 33, 3, "hswish", "tma", torch.float32),
+        (60, 13, 40, 3, "hswish", "plain", torch.bfloat16),  # C_in % 8 != 0
+        (60, 13, 40, 3, "hswish", "plain", torch.float32),
+        (88, 45, 70, 5, "silu", "tma", torch.bfloat16),  # k5 silu, ragged
+        (72, 12, 30, 5, "hswish", "tma", torch.bfloat16),  # k5, W < 32, C_in % 32 != 0
+        (100, 17, 17, 3, "silu", "plain", torch.bfloat16),  # C_mid % 8 != 0: scalar h stores
+    ],
+    ids=lambda v: {torch.bfloat16: "h-bf16", torch.float32: "h-f32"}.get(v, None),
+)
+def test_nhwc_bf16_pass1_matches_plain(card, cin, hh, ww, ksize, act, stage, h_dtype):
+    """The tensor-core NHWC pass 1 (h in bf16 as kernel 2, in float32 as
+    kernel 3, which JAX builds for hswish k = 3) against its plain
+    version: h, and the per-tile sums over the 8 × 32 tiles."""
+    gen = torch.Generator().manual_seed(cin * 10 + hh + ksize)
+    fp = _folded(cin, cin, ksize, False, gen, card)
+    x = torch.randn((2, hh, ww, cin), generator=gen).to(card, torch.bfloat16)
+    assert fc.pass1_staging(x) == stage
+    h_ref, s_ref = fc.nhwc_pass1_reference(x, fp, activation=act, ksize=ksize, h_dtype=h_dtype)
+    reset_launch_counts()
+    h, psum = fc.nhwc_pass1(x, fp, activation=act, ksize=ksize, h_dtype=h_dtype)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_ir_fat_pass1"] == 1
+    assert h.dtype == h_dtype and h.shape == h_ref.shape
+    assert psum.shape == (2, -(-hh // 8) * -(-ww // 32), cin)
+    assert _close(h, h_ref, torch.bfloat16)
+    hw = hh * ww
+    assert float((psum.sum(1) - s_ref.sum(1)).abs().max()) / hw < BAR[torch.bfloat16] * max(
+        1.0, float(s_ref.abs().max()) / hw)
+
+
+def test_nhwc_bf16_pass1_on_a_misaligned_view(card):
+    """A view one element into its storage stages by plain loads, with the
+    result of the TMA staging on an aligned copy (and of a tuple whose
+    packed W1 the wrapper computes)."""
+    gen = torch.Generator().manual_seed(13)
+    fp = _folded(64, 64, 3, False, gen, card)
+    shape = (2, 20, 40, 64)
+    n = 2 * 20 * 40 * 64
+    x = torch.randn((n + 1,), generator=gen).to(card, torch.bfloat16)[1:].view(shape)
+    assert fc.pass1_staging(x) == "plain"
+    h, psum = fc.nhwc_pass1(x, fp)
+    x2 = x.contiguous().clone()
+    assert fc.pass1_staging(x2) == "tma"
+    h2, psum2 = fc.nhwc_pass1(x2, fp._replace(w1_packed=fm.pack_w1(fp.w1)))
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2) and torch.equal(psum, psum2)
+
+
 MEAN = (0.3661029729, 0.3875165941, 0.3501133538, 0.5797285859)
 STD = (0.2388708549, 0.2103625723, 0.2050272174, 0.2025812523)
 
