@@ -806,49 +806,10 @@ __device__ __forceinline__ void issue_p2(const CUtensorMap* hmap, const CUtensor
                   kSseBytes, &bars[s]);
 }
 
-// The gated A operand of chunk c: thread tid takes lane tid % 32 of m16
-// tile (tid / 32) % 4 at k16 step tid / 128, rebuilds W2 = hi + lo, scales
-// each column by its channel's gate and splits the product into hi + lo.
-__device__ __forceinline__ void gate_chunk(const uint4* wv, uint4* gv, const float* gb, int c,
-                                           int cm, int tid) {
-  const int ks = tid >> 7;
-  const int mt = (tid >> 5) & 3;
-  const int lane = tid & 31;
-  const int ih = ((ks * 2) * 4 + mt) * 32 + lane;
-  const int il = ((ks * 2 + 1) * 4 + mt) * 32 + lane;
-  const int c0 = c * tc::kKc + ks * 16 + 2 * (lane & 3);
-  float g[4];  // the gates of the fragment's columns 2t, 2t + 1, 2t + 8, 2t + 9
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int ch = c0 + (q & 1) + (q >> 1) * 8;
-    g[q] = ch < cm ? gb[ch] : 0.f;
-  }
-  const uint4 hi = wv[ih];
-  const uint4 lo = wv[il];
-  uint4 oh, ol;
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&hi);
-  const __nv_bfloat162* l2 = reinterpret_cast<const __nv_bfloat162*>(&lo);
-  __nv_bfloat162* oh2 = reinterpret_cast<__nv_bfloat162*>(&oh);
-  __nv_bfloat162* ol2 = reinterpret_cast<__nv_bfloat162*>(&ol);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {  // register r: columns 2t, 2t + 1 (r < 2) or 2t + 8, 2t + 9
-    const float2 fh = __bfloat1622float2(h2[r]);
-    const float2 fl = __bfloat1622float2(l2[r]);
-    const float v0 = (fh.x + fl.x) * g[2 * (r >> 1)];
-    const float v1 = (fh.y + fl.y) * g[2 * (r >> 1) + 1];
-    const __nv_bfloat162 top = __floats2bfloat162_rn(v0, v1);
-    const float2 ft = __bfloat1622float2(top);
-    oh2[r] = top;
-    ol2[r] = __floats2bfloat162_rn(v0 - ft.x, v1 - ft.y);
-  }
-  gv[ih] = oh;
-  gv[il] = ol;
-}
-
-// One chunk's products of a warp: m16 tiles wm * 2 + i (those holding an
-// output), n8 tiles wn * 4 + j. An h step (HSTEP) adds W2^T h to accp,
-// (W2 g)^T h to accg and, for n8 tiles 2 wm and 2 wm + 1, the sSE tile's
-// product to accz; a skip step adds Wsk^T x to accg.
+// One chunk's products of a warp (tc::pass2_products): m16 tiles wm * 2 + i
+// (those holding an output), n8 tiles wn * 4 + j. An h step (HSTEP) adds
+// W2^T h to accp, (W2 g)^T h to accg and, for n8 tiles 2 wm and 2 wm + 1,
+// the sSE tile's product to accz; a skip step adds Wsk^T x to accg.
 template <bool HSTEP>
 __device__ __forceinline__ void p2_products(uint32_t bbase, const uint4* wv, const uint4* gv,
                                             const uint4* sv, float (*accp)[4][4],
@@ -863,42 +824,18 @@ __device__ __forceinline__ void p2_products(uint32_t bbase, const uint4* wv, con
 #pragma unroll
   for (int ks = 0; ks < 2; ++ks) {
     const int row = ks * 16 + r;
-    uint32_t bf[2][4];
+    uint32_t bf[4][2];  // [n8 tile]
 #pragma unroll
-    for (int jp = 0; jp < 2; ++jp)
-      tc::ldsm_x4_trans(box + (uint32_t)(row * 128 + (((q0 + jp * 2) ^ (row & 7)) << 4)),
-                        bf[jp]);
-    if (HSTEP) {
-      const uint4 as = sv[ks * 32 + lane];
-      tc::mma_bf16(accz[0], as, wm ? bf[1][0] : bf[0][0], wm ? bf[1][1] : bf[0][1]);
-      tc::mma_bf16(accz[1], as, wm ? bf[1][2] : bf[0][2], wm ? bf[1][3] : bf[0][3]);
+    for (int jp = 0; jp < 2; ++jp) {  // n8 tiles 2 jp and 2 jp + 1
+      uint32_t t[4];
+      tc::ldsm_x4_trans(box + (uint32_t)(row * 128 + (((q0 + jp * 2) ^ (row & 7)) << 4)), t);
+      bf[2 * jp][0] = t[0];
+      bf[2 * jp][1] = t[1];
+      bf[2 * jp + 1][0] = t[2];
+      bf[2 * jp + 1][1] = t[3];
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (!(i ? live1 : live0)) continue;
-      const int mt = wm * 2 + i;
-      const uint4 ph = wv[((ks * 2) * 4 + mt) * 32 + lane];
-      const uint4 pl = wv[((ks * 2 + 1) * 4 + mt) * 32 + lane];
-      uint4 gh = ph, gl = pl;
-      if (HSTEP) {
-        gh = gv[((ks * 2) * 4 + mt) * 32 + lane];
-        gl = gv[((ks * 2 + 1) * 4 + mt) * 32 + lane];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t b0 = bf[j >> 1][(j & 1) * 2];
-        const uint32_t b1 = bf[j >> 1][(j & 1) * 2 + 1];
-        if (HSTEP) {
-          tc::mma_bf16(accp[i][j], ph, b0, b1);
-          tc::mma_bf16(accp[i][j], pl, b0, b1);
-          tc::mma_bf16(accg[i][j], gh, b0, b1);
-          tc::mma_bf16(accg[i][j], gl, b0, b1);
-        } else {
-          tc::mma_bf16(accg[i][j], ph, b0, b1);
-          tc::mma_bf16(accg[i][j], pl, b0, b1);
-        }
-      }
-    }
+    tc::pass2_products<false>(bf, nullptr, HSTEP, ks, wv, gv, sv, accp, accg, accz, wm, lane,
+                              live0, live1);
   }
 }
 
@@ -968,7 +905,7 @@ __global__ void __launch_bounds__(kThreadsP2, 2)
       for (int c = 0; c < kStagesP2 && c < nsteps; ++c)
         issue_p2(&hmap, &xmap, ring, bars, c, nh, p0, hw, b, w2blk, ssep, wskblk);
     tc::mbar_wait(&bars[0], 0);
-    gate_chunk(reinterpret_cast<const uint4*>(ring + kW), gated, gb, 0, cm, tid);
+    tc::gate_chunk(reinterpret_cast<const uint4*>(ring + kW), gated, gb, 0, cm, tid);
     __syncthreads();
     for (int c = 0; c < nsteps; ++c) {
       unsigned char* st = ring + (c % kStagesP2) * kStageP2;
@@ -984,8 +921,8 @@ __global__ void __launch_bounds__(kThreadsP2, 2)
         const int s1 = (c + 1) % kStagesP2;
         tc::mbar_wait(&bars[s1], ((c + 1) / kStagesP2) & 1);
         if (c + 1 < nh)
-          gate_chunk(reinterpret_cast<const uint4*>(ring + s1 * kStageP2 + kW),
-                     gated + ((c + 1) & 1) * (tc::kWChunkBytes / 16), gb, c + 1, cm, tid);
+          tc::gate_chunk(reinterpret_cast<const uint4*>(ring + s1 * kStageP2 + kW),
+                         gated + ((c + 1) & 1) * (tc::kWChunkBytes / 16), gb, c + 1, cm, tid);
       }
       __syncthreads();  // stage c % kStagesP2 is consumed; the next gated operand is ready
       if (tid == 0 && c + kStagesP2 < nsteps)
@@ -1019,7 +956,7 @@ __global__ void __launch_bounds__(kThreadsP2, 2)
       }
       __syncthreads();
       if (hstep) {
-        gate_chunk(wdst, gated, gb, c, cm, tid);
+        tc::gate_chunk(wdst, gated, gb, c, cm, tid);
         __syncthreads();
         p2_products<true>(tc::smem_u32(ring), wdst, gated,
                           reinterpret_cast<const uint4*>(ring + kS), accp, accg, accz, wm, wn,

@@ -20,29 +20,45 @@
 // decoder cells (C_in 64 to 688) a pixel costs 2*C_in*C_mid + 2*C_mid*C_out
 // FLOPs for a few bytes per channel, so on the CUDA cores (67 TFLOP/s
 // float32) both passes are bound by operations, not by the 3.35 TB/s of
-// memory; with the products on the tensor cores (989 TFLOP/s bf16) the
-// bf16 pass 1 is bound by its bytes.
+// memory; with the products on the tensor cores (989 TFLOP/s bf16) both
+// bf16 passes are bound by their bytes.
 //
 // bf16 pass 1 (`nhwc_p1_bf16_kernel`, the served route, h in bf16 for
 // kernel 2 or float32 for kernel 3): the 1x1 expand runs on the tensor
 // cores (tc_expand.cuh `expand_chunk_kmajor`: mma.sync bf16 with float32
 // accumulation on W1 split into bf16 hi + lo at fold time, as kernel 1's
 // pass 1; x is K-major here, so its B fragments come from ldmatrix without
-// .trans). One block of 16 warps per (8 x 32 output tile, 64 mid channels,
-// image). x comes 32 channels at a time through a 3-stage ring: a 4-D TMA
-// box (C_in, W, H, B) of the exact halo, (8 + 2P) x (32 + 2P) pixels (the
-// box's inner extent is 32 channels, so its origin is always 16-byte
-// aligned), in the 64-byte swizzle (conflict-free ldmatrix), and a bulk
-// copy of the chunk's packed W1; C_in % 8 != 0 or a misaligned x takes the
-// same kernel with a plain-load staging variant. Then y = act(acc + b1),
-// zero at every pixel outside the image (TMA's zero fill zeroes x, and
-// act(b1) is not zero), goes to shared memory as float32 over the emptied
-// ring, the depthwise conv runs one output pixel and 8 channels at a time
-// a thread, h is staged [pixel][channel] (16-byte pieces swizzled by pixel)
-// and written 16 bytes a store, the block's channels of a pixel in a row,
-// and the per-tile cSE sums keep a fixed order (no atomics).
+// .trans). For float32 h W1 is split into three terms and each chunk's
+// products are summed in a temporary before the float32 total
+// (`expand_chunk`), so that h stays at float32 level. One block of 16
+// warps per (8 x 32 output tile, 64 mid channels, image). x comes 32
+// channels at a time through a 3-stage ring: a 4-D TMA box (C_in, W, H, B)
+// of the exact halo, (8 + 2P) x (32 + 2P) pixels (the box's inner extent
+// is 32 channels, so its origin is always 16-byte aligned), in the 64-byte
+// swizzle (conflict-free ldmatrix), and a bulk copy of the chunk's packed
+// W1; C_in % 8 != 0 or a misaligned x takes the same kernel with a
+// plain-load staging variant. Then y = act(acc + b1), zero at every pixel
+// outside the image (TMA's zero fill zeroes x, and act(b1) is not zero),
+// goes to shared memory as float32 over the emptied ring, the depthwise
+// conv runs one output pixel and 8 channels at a time a thread, h is
+// staged [pixel][channel] (16-byte pieces swizzled by pixel) and written
+// 16 bytes a store, the block's channels of a pixel in a row, and the
+// per-tile cSE sums keep a fixed order (no atomics).
 //
-// The float32 path (`nhwc_p1_kernel`, float32 x) and pass 2 (`nhwc_p2_kernel`):
+// bf16 pass 2 (`nhwc_p2_bf16_kernel`, the served route, h in bf16 or
+// float32): kernel 1's bf16 pass 2 on K-major tiles. (W2 * gate)^T h +
+// s * W2^T h, the sSE logit and Wsk^T x run as mma.sync products on h and x
+// as stored (float32 h split in registers into bf16 hi + lo), with the
+// packed, fold-time A operands. One block of 8 warps per (64 outputs, 128
+// pixels, image), the output blocks of a pixel tile next to each other in
+// the grid so that h comes from HBM once and from L2 for the others; h and
+// x arrive 32 channels at a time through a 3-stage ring of 3-D TMA boxes
+// ([128 pixels][32 channels], 64- or 128-byte swizzle), or by a plain-load
+// variant that writes the same layout; the epilogue stages the float32
+// tile in shared memory and writes each pixel's outputs as bf16, 16 bytes
+// a store.
+//
+// The float32 path (`nhwc_p1_kernel`, `nhwc_p2_kernel`, float32 x):
 // every multiply-add is float32 on the CUDA cores, from shared-memory
 // tiles, with register-tiled products. Pass 1 takes one block per (2-D
 // output tile, 32 or 64 mid channels, image): the output tile is 14x14
@@ -61,11 +77,10 @@
 // 64x64 register-tiled product (4x4 outputs a thread) over C_mid in steps
 // of 32, and the conv skip as a second one over C_in.
 //
-// What it leaves for later work: the tensor cores in pass 2 (the
-// projection, the sSE logit and the conv skip, as kernel 1's bf16 pass 2
-// does them), wgmma in place of mma.sync in pass 1, TMA loads in pass 2,
-// x read once per 64 mid channels in pass 1, h read once per 64 output
-// channels in pass 2.
+// What it leaves for later work: wgmma in place of mma.sync in both bf16
+// passes, x read once per 64 mid channels in pass 1, a block shape for
+// C_out <= 32 (half of pass 2's warps then hold no output), and the
+// overlap of one tile's epilogue with the next tile's copies.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -88,22 +103,6 @@ constexpr int kCo2 = 64;                // pass-2 output channels per block
 constexpr int kCc2 = 32;                // pass-2 reduction step
 static_assert(kKc * kSide == kThreads, "a thread stages one channel of a column");
 static_assert(kKc * kXs <= kRound * kSide2, "x steps fit the y buffer");
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
-}
 
 // 0: hard swish x * relu6(x + 3) / 6; 1: silu x * sigmoid(x)
 template <int ACT>
@@ -173,7 +172,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int r = 0; r < kSide; ++r) {
     const int sy = y0 + r;
     pre[r] = (col_in && sy >= 0 && sy < height && kc < cin)
-                 ? to_f32(xp[(size_t)sy * row])
+                 ? xp[(size_t)sy * row]
                  : 0.f;
   }
 #pragma unroll
@@ -204,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int r = 0; r < kSide; ++r) {
         const int sy = y0 + r;
         pre[r] = (col_in && sy >= 0 && sy < height && c1 + kc < cin)
-                     ? to_f32(xp[(size_t)sy * row + c1])
+                     ? xp[(size_t)sy * row + c1]
                      : 0.f;
       }
 #pragma unroll
@@ -318,17 +317,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// Pass 2. One block per (64 pixels, 64 output channels, image); 256
-// threads. skip: 0 none, 1 identity (cin == cout), 2 conv.
-template <typename TX, typename TH>
+// The float32 pass 2. One block per (64 pixels, 64 output channels,
+// image); 256 threads. skip: 0 none, 1 identity (cin == cout), 2 conv.
 __global__ void __launch_bounds__(kThreads)
-    nhwc_p2_kernel(const TH* __restrict__ h, const TX* __restrict__ x,
+    nhwc_p2_kernel(const float* __restrict__ h, const float* __restrict__ x,
                    const float* __restrict__ gate,
                    const float* __restrict__ sse_w,
                    const float* __restrict__ sse_b,
                    const float* __restrict__ w2, const float* __restrict__ b2,
                    const float* __restrict__ wsk,
-                   const float* __restrict__ bsk, TX* __restrict__ out,
+                   const float* __restrict__ bsk, float* __restrict__ out,
                    int cin, int cm, int cout, int hw, int skip) {
   __shared__ float vs[kPix2][kCc2 + 1];                // [pixel][channel]
   __shared__ __align__(16) float ws[kCc2][kCo2];       // [channel][output]
@@ -341,8 +339,8 @@ __global__ void __launch_bounds__(kThreads)
   const int co0 = blockIdx.y * kCo2;
   const int b = blockIdx.z;
   const int np = min(kPix2, hw - p0);  // live pixels of this block
-  const TH* hb = h + ((size_t)b * hw + p0) * cm;
-  const TX* xb = x + ((size_t)b * hw + p0) * cin;
+  const float* hb = h + ((size_t)b * hw + p0) * cm;
+  const float* xb = x + ((size_t)b * hw + p0) * cin;
   const float* gb = gate + (size_t)b * cm;
 
   // sSE: warp w takes pixels 8w..8w+7, its lanes stride over C_mid
@@ -352,7 +350,7 @@ __global__ void __launch_bounds__(kThreads)
     float z = 0.f;
     if (p < np)
       for (int c = lane; c < cm; c += 32)
-        z = fmaf(sse_w[c], to_f32(hb[(size_t)p * cm + c]), z);
+        z = fmaf(sse_w[c], hb[(size_t)p * cm + c], z);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       z += __shfl_xor_sync(0xffffffffu, z, off);
@@ -382,10 +380,10 @@ __global__ void __launch_bounds__(kThreads)
         float v = 0.f;
         if (p < np && c < kdim) {
           if (part == 0) {
-            const float hv = to_f32(hb[(size_t)p * cm + c]);
+            const float hv = hb[(size_t)p * cm + c];
             v = hv * gb[c] + hv * sv[p];
           } else {
-            v = to_f32(xb[(size_t)p * cin + c]);
+            v = xb[(size_t)p * cin + c];
           }
         }
         vs[p][j] = v;
@@ -422,7 +420,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int p = ty * 4 + i;
     if (p >= np) break;
-    TX* op = out + ((size_t)b * hw + p0 + p) * cout;
+    float* op = out + ((size_t)b * hw + p0 + p) * cout;
 #pragma unroll
     for (int o = 0; o < 4; ++o) {
       const int co = co0 + tx * 4 + o;
@@ -431,9 +429,9 @@ __global__ void __launch_bounds__(kThreads)
       if (skip == 2) {
         v += accs[i][o] + bsk[co];
       } else if (skip == 1) {
-        v += to_f32(xb[(size_t)p * cin + co]);
+        v += xb[(size_t)p * cin + co];
       }
-      op[co] = from_f32<TX>(v);
+      op[co] = v;
     }
   }
 }
@@ -458,6 +456,18 @@ __device__ __forceinline__ float act_fast(float v) {
   return __fdividef(v, 1.f + __expf(-v));
 }
 
+// The activations of the bf16 pass 1 for h of type TH: the fast ones.
+// -DDT_NHWC_F32H_ACT_PRECISE builds the precise act() for float32 h
+// (kernel 3), a variant for tools/time_passes.py --k3-act-precise: 15-17 %
+// slower at the same error, which is the tensor-core expand's (PERF.md).
+template <typename TH, int ACT>
+__device__ __forceinline__ float act_p1(float v) {
+#ifdef DT_NHWC_F32H_ACT_PRECISE
+  if constexpr (sizeof(TH) == 4) return act<ACT>(v);
+#endif
+  return act_fast<ACT>(v);
+}
+
 // Shared-memory plan of the bf16 pass 1 for a k x k depthwise conv and h
 // of type TH. The staged tile is the exact halo, (8 + 2P) x (32 + 2P)
 // pixels of 32 channels (64 bytes a pixel, 64-byte swizzle); the ring of x
@@ -473,7 +483,10 @@ struct NhwcTile {
   static constexpr int NPAD = NTW * 8 * 8;      // pixels the product covers
   static constexpr int XBYTES = NPIX * tc::kKc * 2;       // one chunk of x (a TMA box)
   static constexpr int XSLOT = (XBYTES + 1023) / 1024 * 1024;
-  static constexpr int STAGE = XSLOT + tc::kWChunkBytes;  // x box, then its W chunk
+  static constexpr int TERMS = sizeof(TH) == 4 ? 3 : 2;   // W1's bf16 terms (pack_w1)
+  static constexpr int WELEMS = tc::kWChunkElems / 2 * TERMS;  // packed W1 a chunk
+  static constexpr int WBYTES = WELEMS * 2;
+  static constexpr int STAGE = XSLOT + WBYTES;            // x box, then its W chunk
   static constexpr int RING = kStagesN * STAGE;
   static constexpr int YS = NPAD + 8;           // y row stride in floats (bank spread)
   static constexpr int YBYTES = tc::kCmb * YS * 4;
@@ -492,6 +505,50 @@ struct NhwcTile {
   static_assert((NPAD - NPIX) * 64 <= STAGE - XBYTES, "padding stays in the stage");
 };
 
+// The chunk's expand for h of type TH. bf16 h (kernel 2):
+// tc::expand_chunk_kmajor, W1 in two bf16 terms, into acc. Float32 h
+// (kernel 3): W1 in three terms (pack_w1(w1, terms=3): hi, lo, lo2, within
+// about 2^-24 of W1), and each tile's six products of the chunk (two k16
+// steps x three terms) summed in a zeroed temporary that is then added to
+// acc in float32: the tensor cores do not round each sum to nearest, so a
+// running sum over C_in drifts by ulps of its own size (2.0e-5 in h at the
+// flagship shapes, PERF.md), a temporary by ulps of its part. What is left
+// (1.0e-5) arises inside one mma. The loops run over pairs of n8 tiles,
+// then m16 tiles, then the two k16 steps and the three terms.
+template <typename TH, int NTW>
+__device__ __forceinline__ void expand_chunk(const __nv_bfloat16* xs, const __nv_bfloat16* ws,
+                                             float (*acc)[NTW][4], int wm, int wn, int lane) {
+  if constexpr (sizeof(TH) == 2) {
+    tc::expand_chunk_kmajor<NTW>(xs, ws, acc, wm, wn, lane);
+  } else {
+    constexpr int kTerms = 3;
+    const uint4* wv = reinterpret_cast<const uint4*>(ws);
+    const uint32_t base = tc::smem_u32(xs);
+#pragma unroll
+    for (int j = 0; j < NTW; j += 2) {
+      uint32_t b[2][4];  // [k16 step]: tile j (0, 1), tile j + 1 (2, 3)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        tc::ldsm_kmajor(base, wn * NTW + j, ks, lane, j + 1 < NTW, b[ks]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int q = 0; q < 2 * kTerms; ++q) {  // k16 step q / kTerms, term q % kTerms
+          const uint4 a = wv[(q * 4 + wm * 2 + i) * 32 + lane];
+          tc::mma_bf16(t0, a, b[q / kTerms][0], b[q / kTerms][1]);
+          if (j + 1 < NTW) tc::mma_bf16(t1, a, b[q / kTerms][2], b[q / kTerms][3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i][j][e] += t0[e];
+          if (j + 1 < NTW) acc[i][j + 1][e] += t1[e];
+        }
+      }
+    }
+  }
+}
+
 // One thread: chunk c's x box (TMA: channels c*32.., the haloed tile, with
 // the out-of-image part zero-filled) and packed W chunk (bulk copy) into
 // stage c % kStagesN, completing on that stage's mbarrier.
@@ -501,10 +558,9 @@ __device__ __forceinline__ void issue_nhwc(const CUtensorMap* tmap, unsigned cha
                                            int x0, int y0, int b) {
   const int s = c % kStagesN;
   unsigned char* st = ring + s * L::STAGE;
-  tc::mbar_expect_tx(&bars[s], L::XBYTES + tc::kWChunkBytes);
+  tc::mbar_expect_tx(&bars[s], L::XBYTES + L::WBYTES);
   tc::tma_load_4d(st, tmap, c * tc::kKc, x0, y0, b, &bars[s]);
-  tc::bulk_load(st + L::XSLOT, wblk + (size_t)c * tc::kWChunkElems, tc::kWChunkBytes,
-                &bars[s]);
+  tc::bulk_load(st + L::XSLOT, wblk + (size_t)c * L::WELEMS, L::WBYTES, &bars[s]);
 }
 
 // One block of 16 warps per (8 x 32 output tile, 64 mid channels, image).
@@ -555,7 +611,7 @@ __global__ void __launch_bounds__(kThreadsNB, 1)
   const int m0 = mblk * CMB;
   const int b = blockIdx.z;
   const int nchunks = (cin + tc::kKc - 1) / tc::kKc;
-  const __nv_bfloat16* wblk = wpk + (size_t)mblk * nchunks * tc::kWChunkElems;
+  const __nv_bfloat16* wblk = wpk + (size_t)mblk * nchunks * L::WELEMS;
   const bool warp_live = m0 + wm * 32 < cm;  // warp-uniform: its m16 tiles hold a channel
 
   for (int i = tid; i < CMB * K * K; i += kThreadsNB) {
@@ -590,9 +646,9 @@ __global__ void __launch_bounds__(kThreadsNB, 1)
       tc::mbar_wait(&bars[s], (c / kStagesN) & 1);
       const unsigned char* st = smem + s * L::STAGE;
       if (warp_live)
-        tc::expand_chunk_kmajor<NTW>(reinterpret_cast<const __nv_bfloat16*>(st),
-                                     reinterpret_cast<const __nv_bfloat16*>(st + L::XSLOT),
-                                     acc, wm, wn, lane);
+        expand_chunk<TH, NTW>(reinterpret_cast<const __nv_bfloat16*>(st),
+                              reinterpret_cast<const __nv_bfloat16*>(st + L::XSLOT), acc, wm,
+                              wn, lane);
       __syncthreads();  // every warp is done with stage s
       if (tid == 0 && c + kStagesN < nchunks)
         issue_nhwc<L>(&tmap, smem, wblk, bars, c + kStagesN, x0, y0, b);
@@ -612,14 +668,13 @@ __global__ void __launch_bounds__(kThreadsNB, 1)
                                           (ch & 7) * 2) =
             in ? x[(((size_t)b * height + gy) * width + gx) * cin + gc] : __float2bfloat16(0.f);
       }
-      const uint4* wsrc = reinterpret_cast<const uint4*>(wblk + (size_t)c * tc::kWChunkElems);
+      const uint4* wsrc = reinterpret_cast<const uint4*>(wblk + (size_t)c * L::WELEMS);
       uint4* wdst = reinterpret_cast<uint4*>(smem + L::XSLOT);
-      for (int i = tid; i < tc::kWChunkBytes / 16; i += kThreadsNB) wdst[i] = wsrc[i];
+      for (int i = tid; i < L::WBYTES / 16; i += kThreadsNB) wdst[i] = wsrc[i];
       __syncthreads();
       if (warp_live)
-        tc::expand_chunk_kmajor<NTW>(reinterpret_cast<const __nv_bfloat16*>(smem),
-                                     reinterpret_cast<const __nv_bfloat16*>(wdst), acc, wm, wn,
-                                     lane);
+        expand_chunk<TH, NTW>(reinterpret_cast<const __nv_bfloat16*>(smem),
+                              reinterpret_cast<const __nv_bfloat16*>(wdst), acc, wm, wn, lane);
     }
   }
   __syncthreads();  // the ring is no longer read: y overlays it
@@ -647,10 +702,10 @@ __global__ void __launch_bounds__(kThreadsNB, 1)
           const int gx = x0 + n - py * L::BW;
           const bool row_in = m_ok && gy >= 0 && gy < height;
           float2 v;
-          v.x = (row_in && gx >= 0 && gx < width) ? act_fast<ACT>(acc[i][j][hr * 2] + bias)
+          v.x = (row_in && gx >= 0 && gx < width) ? act_p1<TH, ACT>(acc[i][j][hr * 2] + bias)
                                                   : 0.f;
           v.y = (row_in && gx + 1 >= 0 && gx + 1 < width)
-                    ? act_fast<ACT>(acc[i][j][hr * 2 + 1] + bias)
+                    ? act_p1<TH, ACT>(acc[i][j][hr * 2 + 1] + bias)
                     : 0.f;
           *reinterpret_cast<float2*>(&ys[m * L::YS + n]) = v;
         }
@@ -684,7 +739,7 @@ __global__ void __launch_bounds__(kThreadsNB, 1)
 #pragma unroll
         for (int dx = 0; dx < K; ++dx)
           a = fmaf(yq[dy * L::BW + dx], dws[m * K * K + dy * K + dx], a);
-      s[j] = inside ? act_fast<ACT>(a + bdws[m]) : 0.f;
+      s[j] = inside ? act_p1<TH, ACT>(a + bdws[m]) : 0.f;
     }
     // h staged [pixel][channel]: 16-byte piece q of a pixel at q ^ (pixel % 8)
     if constexpr (sizeof(TH) == 2) {
@@ -746,6 +801,383 @@ __global__ void __launch_bounds__(kThreadsNB, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 pass 2: the projection, the sSE logit and the conv skip on the tensor
+// cores
+// ---------------------------------------------------------------------------
+//
+// The arithmetic of kernel 1's bf16 pass 2 (fused_ir_chw.cu
+// `pass2_bf16_kernel`) on NHWC tensors. With gate g (per image and mid
+// channel) and s[p] = sigmoid(z[p] + b_sse), z[p] = sum_c w_sse[c] h[p, c],
+// the projection of h*g + h*s is
+//   sum_c (W2[c, o] g[c]) h[p, c] + s[p] sum_c W2[c, o] h[p, c],
+// so every product takes h as stored for its B operand. The A operands:
+// W2^T (`w2_packed`, bf16 hi + lo), (W2 * g)^T, formed by the block per
+// chunk from the packed W2 and g and split again into hi + lo, and the sSE
+// tile (`sse_packed`: rows 0 and 1 hi and lo of w_sse, so that one product
+// gives both halves of z). The conv skip is one more product, Wsk^T
+// (`wsk_packed`) against x, summed with the gated one. h and x are K-major
+// here: a chunk is [128 pixels][32 channels], a 3-D TMA box of the
+// (C, HW, B) tensor, in the 64-byte swizzle for bf16 (the layout
+// tc::expand_chunk_kmajor reads: B fragments from ldmatrix without .trans)
+// and in the 128-byte swizzle for float32 h (kernel 3). Float32 h is split
+// in registers into bf16 hi = bf16(h) and lo = bf16(h - hi), as the weights
+// are, and each product sums Whi hhi + Wlo hhi + Whi hlo (the sSE logit
+// also the lo rows against hlo): the dropped Wlo hlo and the splits'
+// remainders are below 2^-16 of each term, so the sums stay at float32
+// level and out is rounded to bf16 once, at the end.
+
+constexpr int kThreadsQ = 256;          // 8 warps: 2 along the outputs x 4 along the pixels
+constexpr int kPixQ = 128;              // pixels a block
+constexpr int kStagesQ = 3;             // chunks in flight (TMA variant)
+constexpr int kSseElemsQ = 2 * 32 * 8;  // a chunk's sSE tiles: [k16 step][lane][8]
+constexpr int kSseBytesQ = kSseElemsQ * 2;
+constexpr int kOutStrideQ = tc::kCmb + 4;  // floats a pixel of the staged output tile
+
+// Shared-memory plan of the bf16 pass 2 for h of type TH: a ring of stages,
+// each the chunk's h or x box, its packed W2 or Wsk chunk and (h steps) its
+// sSE tiles; two gated W2 chunks; z of the block's pixels; the barriers.
+// The output tile, [128 pixels][64 outputs] float32, overlays the ring.
+template <typename TH>
+struct P2Tile {
+  static constexpr int BOX = kPixQ * tc::kKc * (int)sizeof(TH);  // an h chunk: 8 or 16 KB
+  static constexpr int XBOX = kPixQ * tc::kKc * 2;                 // an x chunk: 8 KB
+  static constexpr int OFF_W = BOX;
+  static constexpr int OFF_S = OFF_W + tc::kWChunkBytes;
+  static constexpr int STAGE = OFF_S + kSseBytesQ;  // 17 or 25 KB
+  static constexpr int OFF_GATED = kStagesQ * STAGE;
+  static constexpr int OFF_Z = OFF_GATED + 2 * tc::kWChunkBytes;
+  static constexpr int OFF_BAR = OFF_Z + kPixQ * 4;
+  static constexpr int SMEM = OFF_BAR + kStagesQ * 8 + 1024;  // + the ring's 1024-byte alignment
+  static_assert(STAGE % 1024 == 0, "stages stay 1024-byte aligned (the swizzles)");
+  static_assert(kPixQ * kOutStrideQ * 4 <= kStagesQ * STAGE, "the output tile fits the ring");
+};
+
+// One thread: step c's h (c < nh) or x chunk (the box of 32 channels x 128
+// pixels from channel cc * 32, pixel p0; pixels past HW and channels past C
+// are zero-filled), its packed W2 or Wsk chunk and, for h, its sSE tiles,
+// into stage c % kStagesQ, completing on that stage's mbarrier.
+template <typename TH>
+__device__ __forceinline__ void issue_p2n(const CUtensorMap* hmap, const CUtensorMap* xmap,
+                                          unsigned char* ring, uint64_t* bars, int c, int nh,
+                                          int p0, int b, const __nv_bfloat16* w2blk,
+                                          const __nv_bfloat16* ssep,
+                                          const __nv_bfloat16* wskblk) {
+  using L = P2Tile<TH>;
+  const int s = c % kStagesQ;
+  unsigned char* st = ring + s * L::STAGE;
+  const bool hstep = c < nh;
+  const int cc = hstep ? c : c - nh;
+  tc::mbar_expect_tx(&bars[s], (hstep ? L::BOX + kSseBytesQ : L::XBOX) + tc::kWChunkBytes);
+  tc::tma_load_3d(st, hstep ? hmap : xmap, cc * tc::kKc, p0, b, &bars[s]);
+  tc::bulk_load(st + L::OFF_W, (hstep ? w2blk : wskblk) + (size_t)cc * tc::kWChunkElems,
+                tc::kWChunkBytes, &bars[s]);
+  if (hstep)
+    tc::bulk_load(st + L::OFF_S, ssep + (size_t)c * kSseElemsQ, kSseBytesQ, &bars[s]);
+}
+
+// The plain-load staging: channels c0 .. c0 + 31 of pixels p0 .. p0 + 127
+// of image b of a (B, HW, nc) tensor, zero past nc and HW, in the layout of
+// the TMA box (bf16: 64 bytes a pixel, 64-byte swizzle; float32: 128 bytes
+// a pixel, 128-byte swizzle).
+__device__ __forceinline__ void stage_bf16(unsigned char* dst, const __nv_bfloat16* src, int c0,
+                                           int nc, int p0, int hw, int b, int tid) {
+  for (int i = tid; i < kPixQ * tc::kKc; i += kThreadsQ) {
+    const int p = i / tc::kKc;
+    const int ch = i - p * tc::kKc;
+    const bool in = c0 + ch < nc && p0 + p < hw;
+    *reinterpret_cast<__nv_bfloat16*>(dst + p * 64 + (((ch >> 3) ^ ((p >> 1) & 3)) << 4) +
+                                      (ch & 7) * 2) =
+        in ? src[((size_t)b * hw + p0 + p) * nc + c0 + ch] : __float2bfloat16(0.f);
+  }
+}
+
+__device__ __forceinline__ void stage_f32(unsigned char* dst, const float* src, int c0, int nc,
+                                          int p0, int hw, int b, int tid) {
+  for (int i = tid; i < kPixQ * tc::kKc; i += kThreadsQ) {
+    const int p = i / tc::kKc;
+    const int ch = i - p * tc::kKc;
+    const bool in = c0 + ch < nc && p0 + p < hw;
+    *reinterpret_cast<float*>(dst + p * 128 + (((ch >> 2) ^ (p & 7)) << 4) + (ch & 3) * 4) =
+        in ? src[((size_t)b * hw + p0 + p) * nc + c0 + ch] : 0.f;
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// B fragments of the warp's four n8 tiles (pixels wn * 32 ..) at k16 step
+// ks from a K-major bf16 chunk ([128 pixels][32 channels], 64-byte swizzle).
+__device__ __forceinline__ void frags_bf16(uint32_t base, int wn, int ks, int lane,
+                                           uint32_t (*bf)[2]) {
+#pragma unroll
+  for (int jp = 0; jp < 2; ++jp) {
+    uint32_t r[4];
+    tc::ldsm_kmajor(base, wn * 4 + jp * 2, ks, lane, true, r);
+    bf[2 * jp][0] = r[0];
+    bf[2 * jp][1] = r[1];
+    bf[2 * jp + 1][0] = r[2];
+    bf[2 * jp + 1][1] = r[3];
+  }
+}
+
+// The same fragments from a K-major float32 chunk ([128 pixels][32
+// channels], 128-byte swizzle: the 16-byte chunk q of pixel p's 128 bytes at
+// q ^ (p % 8)), split into bf16 hi (bh) and lo (bl). Lane (g, t) reads
+// channels 2t, 2t + 1 and 2t + 8, 2t + 9 of pixel g of each tile, 8 bytes a
+// load: the warp's 32 loads fill every bank twice, the least for 256 bytes.
+__device__ __forceinline__ void frags_f32(const unsigned char* chunk, int wn, int ks, int lane,
+                                          uint32_t (*bh)[2], uint32_t (*bl)[2]) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int p = wn * 32 + j * 8 + g;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // channels ks * 16 + r * 8 + 2t, + 1
+      const int q = ks * 4 + r * 2 + (t >> 1);
+      const float2 v = *reinterpret_cast<const float2*>(chunk + p * 128 + ((q ^ (p & 7)) << 4) +
+                                                        (t & 1) * 8);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.x, v.y);
+      const float2 f = __bfloat1622float2(hi);
+      bh[j][r] = bf16x2_bits(hi);
+      bl[j][r] = bf16x2_bits(__floats2bfloat162_rn(v.x - f.x, v.y - f.y));
+    }
+  }
+}
+
+// One chunk's products of a warp (tc::pass2_products): m16 tiles wm * 2 + i
+// (those holding an output), n8 tiles wn * 4 + j; float32 h (kernel 3) as
+// bf16 hi and lo fragments.
+template <typename TH>
+__device__ __forceinline__ void p2n_chunk(const unsigned char* st, bool hstep, const uint4* gv,
+                                          float (*accp)[4][4], float (*accg)[4][4],
+                                          float (*accz)[4], int wm, int wn, int lane,
+                                          bool live0, bool live1) {
+  using L = P2Tile<TH>;
+  constexpr bool SPLIT = sizeof(TH) == 4;
+  const uint4* wv = reinterpret_cast<const uint4*>(st + L::OFF_W);
+  const uint4* sv = reinterpret_cast<const uint4*>(st + L::OFF_S);
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    uint32_t bh[4][2], bl[4][2];
+    if (SPLIT && hstep)
+      frags_f32(st, wn, ks, lane, bh, bl);
+    else
+      frags_bf16(tc::smem_u32(st), wn, ks, lane, bh);
+    tc::pass2_products<SPLIT>(bh, bl, hstep, ks, wv, gv, sv, accp, accg, accz, wm, lane, live0,
+                              live1);
+  }
+}
+
+// One block of 8 warps per (64 output channels, 128 pixels, image), the
+// output block fastest in the grid (blockIdx.x = (b * n_pt + pixel tile) *
+// n_ob + output block), so that the blocks that read the same h run side
+// by side and all but the first find it in L2. skip: 0 none, 1 identity
+// (cin == cout), 2 conv. TMA: h and x by 3-D TMA boxes through a ring of
+// kStagesQ stages (C % 8 == 0 and 16-byte aligned tensors, pass2_staging in
+// ops/fused_cell.py); else one stage filled by plain loads in the same
+// swizzled layout. The epilogue stages the float32 tile [pixel][output] in
+// shared memory and writes out = acc_g + s acc_p + b2 (+ bsk) (+ x) as bf16,
+// each pixel's outputs in a row, 16 bytes a store where C_out % 8 == 0.
+template <typename TH, bool TMA>
+__global__ void __launch_bounds__(kThreadsQ, 2)
+    nhwc_p2_bf16_kernel(const __grid_constant__ CUtensorMap hmap,
+                        const __grid_constant__ CUtensorMap xmap, const TH* __restrict__ h,
+                        const __nv_bfloat16* __restrict__ x, const float* __restrict__ gate,
+                        const __nv_bfloat16* __restrict__ w2p,
+                        const __nv_bfloat16* __restrict__ ssep, const float* __restrict__ sse_b,
+                        const float* __restrict__ b2, const __nv_bfloat16* __restrict__ wskp,
+                        const float* __restrict__ bsk, __nv_bfloat16* __restrict__ out, int cin,
+                        int cm, int cout, int hw, int skip, int n_ob, int n_pt) {
+  using L = P2Tile<TH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = tc::align1024(smem_raw);
+  uint4* gated = reinterpret_cast<uint4*>(ring + L::OFF_GATED);
+  float* zs = reinterpret_cast<float*>(ring + L::OFF_Z);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + L::OFF_BAR);
+  float* ot = reinterpret_cast<float*>(ring);  // [kPixQ][kOutStrideQ], after the products
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2;
+  const int wn = warp & 3;
+  const int ob = blockIdx.x % n_ob;
+  const int pt = (blockIdx.x / n_ob) % n_pt;
+  const int b = blockIdx.x / n_ob / n_pt;
+  const int o0 = ob * tc::kCmb;
+  const int p0 = pt * kPixQ;
+  const int nh = (cm + tc::kKc - 1) / tc::kKc;
+  const int nxc = (cin + tc::kKc - 1) / tc::kKc;
+  const int nsteps = nh + (skip == 2 ? nxc : 0);
+  const __nv_bfloat16* w2blk = w2p + (size_t)ob * nh * tc::kWChunkElems;
+  const __nv_bfloat16* wskblk =
+      skip == 2 ? wskp + (size_t)ob * nxc * tc::kWChunkElems : nullptr;
+  const float* gb = gate + (size_t)b * cm;
+  const bool live0 = o0 + wm * 32 < cout;  // warp-uniform: the m16 tile holds an output
+  const bool live1 = o0 + wm * 32 + 16 < cout;
+  constexpr int kGatedChunk = tc::kWChunkBytes / 16;  // uint4 a gated chunk
+
+  float accp[2][4][4], accg[2][4][4], accz[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accp[i][j][e] = accg[i][j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) accz[j][e] = 0.f;
+
+  if constexpr (TMA) {
+    if (tid == 0) {
+      for (int s = 0; s < kStagesQ; ++s) tc::mbar_init(&bars[s], 1);
+      tc::mbar_fence_init();
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int c = 0; c < kStagesQ && c < nsteps; ++c)
+        issue_p2n<TH>(&hmap, &xmap, ring, bars, c, nh, p0, b, w2blk, ssep, wskblk);
+    tc::mbar_wait(&bars[0], 0);
+    tc::gate_chunk(reinterpret_cast<const uint4*>(ring + L::OFF_W), gated, gb, 0, cm, tid);
+    __syncthreads();
+    for (int c = 0; c < nsteps; ++c) {
+      const unsigned char* st = ring + (c % kStagesQ) * L::STAGE;
+      p2n_chunk<TH>(st, c < nh, gated + (c & 1) * kGatedChunk, accp, accg, accz, wm, wn, lane,
+                    live0, live1);
+      if (c + 1 < nsteps) {  // the next chunk: wait for it, form its gated operand
+        const int s1 = (c + 1) % kStagesQ;
+        tc::mbar_wait(&bars[s1], ((c + 1) / kStagesQ) & 1);
+        if (c + 1 < nh)
+          tc::gate_chunk(reinterpret_cast<const uint4*>(ring + s1 * L::STAGE + L::OFF_W),
+                         gated + ((c + 1) & 1) * kGatedChunk, gb, c + 1, cm, tid);
+      }
+      __syncthreads();  // stage c % kStagesQ is consumed; the next gated operand is ready
+      if (tid == 0 && c + kStagesQ < nsteps)
+        issue_p2n<TH>(&hmap, &xmap, ring, bars, c + kStagesQ, nh, p0, b, w2blk, ssep, wskblk);
+    }
+  } else {
+    for (int c = 0; c < nsteps; ++c) {
+      __syncthreads();  // the previous chunk is consumed
+      const bool hstep = c < nh;
+      const int cc = hstep ? c : c - nh;
+      if constexpr (sizeof(TH) == 4) {
+        if (hstep)
+          stage_f32(ring, h, cc * tc::kKc, cm, p0, hw, b, tid);
+        else
+          stage_bf16(ring, x, cc * tc::kKc, cin, p0, hw, b, tid);
+      } else {
+        stage_bf16(ring, hstep ? h : x, cc * tc::kKc, hstep ? cm : cin, p0, hw, b, tid);
+      }
+      const uint4* wsrc = reinterpret_cast<const uint4*>((hstep ? w2blk : wskblk) +
+                                                         (size_t)cc * tc::kWChunkElems);
+      uint4* wdst = reinterpret_cast<uint4*>(ring + L::OFF_W);
+      for (int i = tid; i < tc::kWChunkBytes / 16; i += kThreadsQ) wdst[i] = wsrc[i];
+      if (hstep) {
+        const uint4* ssrc = reinterpret_cast<const uint4*>(ssep + (size_t)c * kSseElemsQ);
+        uint4* sdst = reinterpret_cast<uint4*>(ring + L::OFF_S);
+        for (int i = tid; i < kSseBytesQ / 16; i += kThreadsQ) sdst[i] = ssrc[i];
+      }
+      __syncthreads();
+      if (hstep) {
+        tc::gate_chunk(wdst, gated, gb, c, cm, tid);
+        __syncthreads();
+      }
+      p2n_chunk<TH>(ring, hstep, gated, accp, accg, accz, wm, wn, lane, live0, live1);
+    }
+  }
+
+  // z of the warp's n8 tiles 2 wm, 2 wm + 1: row 0 (hi) + row 1 (lo) of the
+  // sSE product, in lanes 0-3 and 4-7
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const float v0 = accz[jj][0] + __shfl_down_sync(0xffffffffu, accz[jj][0], 4);
+    const float v1 = accz[jj][1] + __shfl_down_sync(0xffffffffu, accz[jj][1], 4);
+    if (lane < 4) {
+      const int n = wn * 32 + (wm * 2 + jj) * 8 + 2 * lane;
+      zs[n] = v0;
+      zs[n + 1] = v1;
+    }
+  }
+  __syncthreads();  // z is complete; the ring is no longer read: the output tile overlays it
+
+  // the C fragments into the tile [pixel][output]: with 68 floats a pixel
+  // the warp's 32 stores of one register hit 32 banks
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float sb = sse_b[0];
+  float sv[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      sv[j][e] = 1.f / (1.f + expf(-(zs[wn * 32 + j * 8 + 2 * t + e] + sb)));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!(i ? live1 : live0)) continue;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int o = (wm * 2 + i) * 16 + hr * 8 + g;
+      if (o0 + o >= cout) continue;
+      const float bias = b2[o0 + o] + (skip == 2 ? bsk[o0 + o] : 0.f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn * 32 + j * 8 + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          ot[(n + e) * kOutStrideQ + o] =
+              accg[i][j][hr * 2 + e] + sv[j][e] * accp[i][j][hr * 2 + e] + bias;
+      }
+    }
+  }
+  __syncthreads();
+
+  // each pixel's outputs in a row, with the identity skip added in float32
+  const int rows = min(tc::kCmb, cout - o0);
+  const int np = min(kPixQ, hw - p0);
+  __nv_bfloat16* ob_ = out + ((size_t)b * hw + p0) * cout + o0;
+  const __nv_bfloat16* xb = x + ((size_t)b * hw + p0) * cin + o0;  // identity: cin == cout
+  if (cout % 8 == 0 && (skip != 1 || TMA)) {
+    // 8 outputs (16 bytes) a store; lanes 8k .. 8k + 7 take 8 pixels of one
+    // group of 8 outputs, so their 16-byte reads of the tile hit 32 banks
+    for (int i = tid; i < kPixQ * (tc::kCmb / 8); i += kThreadsQ) {
+      const int q = (i >> 3) & 7;
+      const int p = (i & 7) + ((i >> 6) << 3);
+      if (q * 8 >= rows || p >= np) continue;
+      const float4 u0 = *reinterpret_cast<const float4*>(&ot[p * kOutStrideQ + q * 8]);
+      const float4 u1 = *reinterpret_cast<const float4*>(&ot[p * kOutStrideQ + q * 8 + 4]);
+      float v[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+      if (skip == 1) {  // TMA: C_in % 8 == 0 and x 16-byte aligned
+        const uint4 xv = *reinterpret_cast<const uint4*>(xb + (size_t)p * cin + q * 8);
+        const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xv);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(x2[k]);
+          v[2 * k] += f.x;
+          v[2 * k + 1] += f.y;
+        }
+      }
+      uint4 pk;
+      __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&pk);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) p2[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      *reinterpret_cast<uint4*>(ob_ + (size_t)p * cout + q * 8) = pk;
+    }
+  } else {
+    for (int i = tid; i < kPixQ * tc::kCmb; i += kThreadsQ) {
+      const int p = i / tc::kCmb;
+      const int o = i - p * tc::kCmb;
+      if (o >= rows || p >= np) continue;
+      float v = ot[p * kOutStrideQ + o];
+      if (skip == 1) v += __bfloat162float(xb[(size_t)p * cin + o]);
+      ob_[(size_t)p * cout + o] = __float2bfloat16(v);
+    }
+  }
+}
+
 template <int K, int ACT, int CMB>
 int launch_pass1_cmb(const void* x, const void* w1, const void* b1,
                      const void* dw, const void* bdw, void* h, void* psum,
@@ -783,19 +1215,18 @@ int launch_pass1(const void* x, const void* w1, const void* b1,
                                       width, stream);
 }
 
-template <typename TX, typename TH>
 int launch_pass2(const void* h, const void* x, const void* gate,
                  const void* sse_w, const void* sse_b, const void* w2,
                  const void* b2, const void* wsk, const void* bsk, void* out,
                  int batch, int cin, int cm, int cout, int hw, int skip,
                  cudaStream_t stream) {
   const dim3 grid((hw + kPix2 - 1) / kPix2, (cout + kCo2 - 1) / kCo2, batch);
-  nhwc_p2_kernel<TX, TH><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TH*>(h), static_cast<const TX*>(x),
+  nhwc_p2_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(h), static_cast<const float*>(x),
       static_cast<const float*>(gate), static_cast<const float*>(sse_w),
       static_cast<const float*>(sse_b), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(wsk),
-      static_cast<const float*>(bsk), static_cast<TX*>(out), cin, cm, cout, hw,
+      static_cast<const float*>(bsk), static_cast<float*>(out), cin, cm, cout, hw,
       skip);
   return static_cast<int>(cudaGetLastError());
 }
@@ -843,6 +1274,62 @@ int launch_pass1_bf16(const void* x, const void* wpk, const void* b1, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// a 3-D tensor map of a (B, HW, C) tensor of bf16 or float32, innermost
+// first: boxes of 32 channels x 128 pixels, in the 64-byte (bf16) or
+// 128-byte (float32) swizzle, so that a box's pixel row is one swizzle span
+template <typename T>
+int encode_nhwc_boxes(CUtensorMap* map, const void* base, int hw, int c, int batch) {
+  const tc::EncodeTiledFn encode = tc::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  constexpr bool f32 = sizeof(T) == 4;
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)hw, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)c * sizeof(T), (cuuint64_t)hw * c * sizeof(T)};
+  const cuuint32_t box[3] = {tc::kKc, kPixQ, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+      const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      f32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename TH, bool TMA>
+int launch_pass2_bf16(const void* h, const void* x, const void* gate, const void* ssep,
+                      const void* sse_b, const void* w2p, const void* b2, const void* wskp,
+                      const void* bsk, void* out, int batch, int cin, int cm, int cout, int hw,
+                      int skip, cudaStream_t stream) {
+  using L = P2Tile<TH>;
+  static bool smem_allowed = false;  // once per instantiation
+  if (!smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        nhwc_p2_bf16_kernel<TH, TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_allowed = true;
+  }
+  CUtensorMap hmap, xmap;
+  memset(&hmap, 0, sizeof(hmap));
+  memset(&xmap, 0, sizeof(xmap));
+  if constexpr (TMA) {
+    int r = encode_nhwc_boxes<TH>(&hmap, h, hw, cm, batch);
+    if (r == 0 && skip == 2) r = encode_nhwc_boxes<__nv_bfloat16>(&xmap, x, hw, cin, batch);
+    if (r != 0) return r;
+  }
+  const int n_ob = (cout + tc::kCmb - 1) / tc::kCmb;
+  const int n_pt = (hw + kPixQ - 1) / kPixQ;
+  const long long blocks = (long long)n_ob * n_pt * batch;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  nhwc_p2_bf16_kernel<TH, TMA><<<(unsigned)blocks, kThreadsQ, L::SMEM, stream>>>(
+      hmap, xmap, static_cast<const TH*>(h), static_cast<const __nv_bfloat16*>(x),
+      static_cast<const float*>(gate), static_cast<const __nv_bfloat16*>(w2p),
+      static_cast<const __nv_bfloat16*>(ssep), static_cast<const float*>(sse_b),
+      static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(wskp),
+      static_cast<const float*>(bsk), static_cast<__nv_bfloat16*>(out), cin, cm, cout, hw, skip,
+      n_ob, n_pt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -861,9 +1348,10 @@ int fused_ir_nhwc_tile_size(int ksize, int x_bf16, int axis) {
 // float32, t = fused_ir_nhwc_tile_size(k, x_bf16, axis). act: 0 hard
 // swish, 1 silu. Types: (x, h) = (f32, f32) or (bf16, bf16) with any k and
 // act, or (bf16, f32) with k = 3 and hard swish. float32 x reads w1;
-// bfloat16 x reads w1_packed (ops/fused_mbconv.py `pack_w1`, 16-byte
-// aligned) and with tma != 0 stages x by TMA (needs C_in % 8 == 0 and x
-// 16-byte aligned), else by plain loads. Returns cudaGetLastError()
+// bfloat16 x reads w1_packed (ops/fused_mbconv.py `pack_w1`: two bf16
+// terms for bf16 h, three (terms=3) for float32 h; 16-byte aligned) and
+// with tma != 0 stages x by TMA (needs C_in % 8 == 0 and x 16-byte
+// aligned), else by plain loads. Returns cudaGetLastError()
 // (cudaErrorInvalidValue for arguments it cannot take).
 int fused_ir_nhwc_pass1(const void* x, const void* w1, const void* w1_packed,
                         const void* b1, const void* dw, const void* bdw, void* h, void* psum,
@@ -910,23 +1398,44 @@ int fused_ir_nhwc_pass1(const void* x, const void* w1, const void* w1_packed,
 // (B, H*W, Cout) in x's type; gate (B, Cm), sse_w (Cm), sse_b (1),
 // w2 (Cm, Cout), b2 (Cout) float32; wsk (Cin, Cout) and bsk (Cout)
 // float32, read only when skip == 2. skip: 0 none, 1 identity, 2 conv.
-// Returns cudaGetLastError().
+// float32 x (with float32 h) reads w2, sse_w and wsk; bfloat16 x (h bf16,
+// kernel 2, or float32, kernel 3) reads their bf16 hi + lo splits in the
+// product's order (ops/fused_mbconv.py `pack_w1` of w2 and wsk, `pack_sse`;
+// 16-byte aligned) and with tma != 0 stages h and x by TMA (needs C_mid %
+// 8 == 0 and h 16-byte aligned, and unless skip == 0 C_in % 8 == 0 and x
+// 16-byte aligned), else by plain loads. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for arguments it cannot take).
 int fused_ir_nhwc_pass2(const void* h, const void* x, const void* gate,
                         const void* sse_w, const void* sse_b, const void* w2,
                         const void* b2, const void* wsk, const void* bsk,
-                        void* out, int batch, int cin, int cm, int cout, int hw,
-                        int skip, int x_bf16, int h_bf16, void* stream) {
+                        const void* w2_packed, const void* sse_packed,
+                        const void* wsk_packed, void* out, int batch, int cin, int cm,
+                        int cout, int hw, int skip, int x_bf16, int h_bf16, int tma,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   typedef __nv_bfloat16 bf;
-  if (skip < 0 || skip > 2) return static_cast<int>(cudaErrorInvalidValue);
-#define DT_PASS2(TX, TH)                                                        \
-  return launch_pass2<TX, TH>(h, x, gate, sse_w, sse_b, w2, b2, wsk, bsk, out, \
-                              batch, cin, cm, cout, hw, skip, s)
-  if (!x_bf16 && !h_bf16) DT_PASS2(float, float);
-  if (x_bf16 && h_bf16) DT_PASS2(bf, bf);
-  if (x_bf16 && !h_bf16) DT_PASS2(bf, float);
+  if (skip < 0 || skip > 2 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (!x_bf16) {
+    if (h_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_pass2(h, x, gate, sse_w, sse_b, w2, b2, wsk, bsk, out, batch, cin, cm, cout,
+                        hw, skip, s);
+  }
+  auto misaligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 != 0; };
+  if (w2_packed == nullptr || sse_packed == nullptr || misaligned(w2_packed) ||
+      misaligned(sse_packed) || (skip == 2 && (wsk_packed == nullptr || misaligned(wsk_packed))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tma && (cm % 8 != 0 || misaligned(h) || (skip != 0 && (cin % 8 != 0 || misaligned(x)))))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define DT_PASS2(TH, TMA)                                                                   \
+  return launch_pass2_bf16<TH, TMA>(h, x, gate, sse_packed, sse_b, w2_packed, b2, wsk_packed, \
+                                    bsk, out, batch, cin, cm, cout, hw, skip, s)
+  if (h_bf16) {
+    if (tma) DT_PASS2(bf, true);
+    DT_PASS2(bf, false);
+  }
+  if (tma) DT_PASS2(float, true);
+  DT_PASS2(float, false);
 #undef DT_PASS2
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

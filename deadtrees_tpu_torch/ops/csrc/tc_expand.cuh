@@ -1,6 +1,8 @@
-// The 1x1 expand of the fused inverted-residual pass 1 on the tensor
-// cores, and the asynchronous-copy helpers around it (sm_90a). Included by
-// fused_ir_chw.cu (both bf16 passes) and fused_ir_nhwc.cu (the bf16 pass 1).
+// The 1x1 products of the fused inverted-residual block on the tensor
+// cores (the expand of pass 1; the gated operand and the products of the
+// bf16 pass 2), and the asynchronous-copy helpers around them (sm_90a).
+// Included by fused_ir_chw.cu and fused_ir_nhwc.cu (both bf16 passes of
+// each).
 //
 // The product: acc[m, n] += sum_k W1T[m, k] x[k, n], m a mid channel, k an
 // input channel, n a pixel of the staged (haloed) tile. It runs as
@@ -153,6 +155,23 @@ __device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
                : "r"(addr));
 }
 
+// B fragments at k16 step ks of n8 tile `tile` (b[0], b[1]) and, with
+// `two`, of tile + 1 (b[2], b[3]) from a K-major chunk in the 64-byte
+// swizzle (above; base its shared address). ldmatrix rows: lane l gives row
+// l % 8 of matrix l / 8; the matrices are (tile, channels 0-7), (tile,
+// 8-15), (tile + 1, 0-7), (tile + 1, 8-15).
+__device__ __forceinline__ void ldsm_kmajor(uint32_t base, int tile, int ks, int lane, bool two,
+                                            uint32_t* b) {
+  const int mat = lane >> 3;
+  const int p = tile * 8 + (mat >> 1) * 8 + (lane & 7);
+  const int quarter = ks * 2 + (mat & 1);  // 16-byte quarter of the pixel's 64 bytes
+  const uint32_t addr = base + (uint32_t)(p * 64 + ((quarter ^ ((p >> 1) & 3)) << 4));
+  if (two)
+    ldsm_x4(addr, b);
+  else
+    ldsm_x2(addr, b);
+}
+
 // acc[i][j] (m16 tile wm * 2 + i, n8 tile wn * NTW + j of the block) +=
 // one chunk's product. xs: the chunk's x, [32][ns] bf16; ws: its packed
 // weights. The C fragment: acc[i][j][0..1] at (row g, columns 2t, 2t + 1),
@@ -203,11 +222,6 @@ __device__ __forceinline__ void expand_chunk_kmajor(const __nv_bfloat16* xs,
                                                     float (*acc)[NTW][4], int wm, int wn,
                                                     int lane) {
   const uint4* wv = reinterpret_cast<const uint4*>(ws);
-  // ldmatrix rows: lane l gives row l % 8 of matrix l / 8; the matrices are
-  // (tile j, channels 0-7), (tile j, 8-15), (tile j + 1, 0-7), (tile j + 1, 8-15)
-  const int mat = lane >> 3;
-  const int prow = (mat >> 1) * 8 + (lane & 7);  // pixel within the pair of n8 tiles
-  const int khalf = mat & 1;
   const uint32_t base = smem_u32(xs);
 #pragma unroll
   for (int ks = 0; ks < kKc / 16; ++ks) {
@@ -216,17 +230,10 @@ __device__ __forceinline__ void expand_chunk_kmajor(const __nv_bfloat16* xs,
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int hl = 0; hl < 2; ++hl) a[i][hl] = wv[((ks * 2 + hl) * 4 + wm * 2 + i) * 32 + lane];
-    const int quarter = ks * 2 + khalf;  // 16-byte quarter of the pixel's 64 bytes
 #pragma unroll
     for (int j = 0; j < NTW; j += 2) {
-      const int p = (wn * NTW + j) * 8 + prow;
-      const uint32_t addr = base + (uint32_t)(p * 64 + ((quarter ^ ((p >> 1) & 3)) << 4));
       uint32_t b[4];
-      if (j + 1 < NTW) {
-        ldsm_x4(addr, b);
-      } else {
-        ldsm_x2(addr, b);
-      }
+      ldsm_kmajor(base, wn * NTW + j, ks, lane, j + 1 < NTW, b);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -234,6 +241,110 @@ __device__ __forceinline__ void expand_chunk_kmajor(const __nv_bfloat16* xs,
           mma_bf16(acc[i][j], a[i][hl], b[0], b[1]);
           if (j + 1 < NTW) mma_bf16(acc[i][j + 1], a[i][hl], b[2], b[3]);
         }
+    }
+  }
+}
+
+// ---- the bf16 pass 2 (fused_ir_chw.cu and fused_ir_nhwc.cu) ----
+//
+// A block of 8 warps takes 64 outputs (4 m16 tiles) x 128 pixels (16 n8
+// tiles) and runs over chunks of 32 mid channels (h steps) and, for the
+// conv skip, of 32 input channels (x steps). The A operands are packed as
+// W1 is above: W2^T (`w2_packed`), Wsk^T (`wsk_packed`), the sSE tile
+// (`sse_packed`: [k16 step][lane][8], row 0 hi(w_sse), row 1 lo(w_sse)),
+// and (W2 * gate)^T, which the block forms per chunk (gate_chunk).
+
+// The gated A operand of chunk c: thread tid takes lane tid % 32 of m16
+// tile (tid / 32) % 4 at k16 step tid / 128, rebuilds W2 = hi + lo, scales
+// each column by its channel's gate and splits the product into hi + lo.
+__device__ __forceinline__ void gate_chunk(const uint4* wv, uint4* gv, const float* gb, int c,
+                                           int cm, int tid) {
+  const int ks = tid >> 7;
+  const int mt = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int ih = ((ks * 2) * 4 + mt) * 32 + lane;
+  const int il = ((ks * 2 + 1) * 4 + mt) * 32 + lane;
+  const int c0 = c * kKc + ks * 16 + 2 * (lane & 3);
+  float g[4];  // the gates of the fragment's columns 2t, 2t + 1, 2t + 8, 2t + 9
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int ch = c0 + (q & 1) + (q >> 1) * 8;
+    g[q] = ch < cm ? gb[ch] : 0.f;
+  }
+  const uint4 hi = wv[ih];
+  const uint4 lo = wv[il];
+  uint4 oh, ol;
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&hi);
+  const __nv_bfloat162* l2 = reinterpret_cast<const __nv_bfloat162*>(&lo);
+  __nv_bfloat162* oh2 = reinterpret_cast<__nv_bfloat162*>(&oh);
+  __nv_bfloat162* ol2 = reinterpret_cast<__nv_bfloat162*>(&ol);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {  // register r: columns 2t, 2t + 1 (r < 2) or 2t + 8, 2t + 9
+    const float2 fh = __bfloat1622float2(h2[r]);
+    const float2 fl = __bfloat1622float2(l2[r]);
+    const float v0 = (fh.x + fl.x) * g[2 * (r >> 1)];
+    const float v1 = (fh.y + fl.y) * g[2 * (r >> 1) + 1];
+    const __nv_bfloat162 top = __floats2bfloat162_rn(v0, v1);
+    const float2 ft = __bfloat1622float2(top);
+    oh2[r] = top;
+    ol2[r] = __floats2bfloat162_rn(v0 - ft.x, v1 - ft.y);
+  }
+  gv[ih] = oh;
+  gv[il] = ol;
+}
+
+// One k16 step's products of a warp: m16 tiles wm * 2 + i (those holding an
+// output: live0, live1), the warp's n8 tiles j = 0..3 with B fragments
+// bh[j]. An h step adds W2^T h to accp (wv: the packed W2 chunk), (W2 g)^T
+// h to accg (gv: the gated chunk) and, for n8 tiles 2 wm and 2 wm + 1, the
+// sSE tile's product to accz (sv); with SPLIT (float32 h, split into bf16
+// hi in bh and lo in bl) also the hi A operands and the sSE tile against
+// the lo halves: Whi hhi + Wlo hhi + Whi hlo. An x step adds Wsk^T x to
+// accg (wv: the packed Wsk chunk).
+template <bool SPLIT>
+__device__ __forceinline__ void pass2_products(const uint32_t (*bh)[2], const uint32_t (*bl)[2],
+                                               bool hstep, int ks, const uint4* wv,
+                                               const uint4* gv, const uint4* sv,
+                                               float (*accp)[4][4], float (*accg)[4][4],
+                                               float (*accz)[4], int wm, int lane, bool live0,
+                                               bool live1) {
+  if (hstep) {
+    // n8 tile 2 wm + jj by a select on wm (0 or 1): an index computed from
+    // wm would put the fragments in local memory
+    const uint4 as = sv[ks * 32 + lane];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      mma_bf16(accz[jj], as, wm ? bh[2 + jj][0] : bh[jj][0], wm ? bh[2 + jj][1] : bh[jj][1]);
+      if (SPLIT)
+        mma_bf16(accz[jj], as, wm ? bl[2 + jj][0] : bl[jj][0], wm ? bl[2 + jj][1] : bl[jj][1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!(i ? live1 : live0)) continue;
+    const int mt = wm * 2 + i;
+    const uint4 ph = wv[((ks * 2) * 4 + mt) * 32 + lane];
+    const uint4 pl = wv[((ks * 2 + 1) * 4 + mt) * 32 + lane];
+    if (hstep) {
+      const uint4 gh = gv[((ks * 2) * 4 + mt) * 32 + lane];
+      const uint4 gl = gv[((ks * 2 + 1) * 4 + mt) * 32 + lane];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma_bf16(accp[i][j], ph, bh[j][0], bh[j][1]);
+        mma_bf16(accp[i][j], pl, bh[j][0], bh[j][1]);
+        mma_bf16(accg[i][j], gh, bh[j][0], bh[j][1]);
+        mma_bf16(accg[i][j], gl, bh[j][0], bh[j][1]);
+        if (SPLIT) {
+          mma_bf16(accp[i][j], ph, bl[j][0], bl[j][1]);
+          mma_bf16(accg[i][j], gh, bl[j][0], bl[j][1]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma_bf16(accg[i][j], ph, bh[j][0], bh[j][1]);
+        mma_bf16(accg[i][j], pl, bh[j][0], bh[j][1]);
+      }
     }
   }
 }

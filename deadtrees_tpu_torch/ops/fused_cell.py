@@ -3,8 +3,8 @@ decoder cells (C_in ≥ 64) of the ``fused_decoder="nhwc"`` route.
 
 Counterpart of ``deadtrees_tpu.ops.fused_cell.fused_ir_fat``. The block
 runs as two hand-written CUDA kernels (``csrc/fused_ir_nhwc.cu``, built at
-first CUDA use by ``ops/_build.py``; for bf16 x pass 1 runs its 1×1
-expand on the tensor cores):
+first CUDA use by ``ops/_build.py``; for bf16 x both run their 1×1
+products on the tensor cores):
 
   pass 1:  y = act(x·W1 + b1), zero outside the image
            h = act(dw_k×k(y) + b_dw)             stored in x's dtype
@@ -43,6 +43,7 @@ from deadtrees_tpu_torch.ops.fused_mbconv import (
     _resolve_skip,
     cse_gate,
     pack_w1,
+    pass2_operands,
 )
 from deadtrees_tpu_torch.ops.launches import LAUNCHES
 
@@ -142,7 +143,7 @@ def bind_kernels(lib):
     lib.fused_ir_nhwc_tile_size.restype = _I
     lib.fused_ir_nhwc_pass1.argtypes = [_P] * 8 + [_I] * 10 + [_P]
     lib.fused_ir_nhwc_pass1.restype = _I
-    lib.fused_ir_nhwc_pass2.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    lib.fused_ir_nhwc_pass2.argtypes = [_P] * 13 + [_I] * 9 + [_P]
     lib.fused_ir_nhwc_pass2.restype = _I
     for ksize in (3, 5):
         for dtype in (torch.float32, torch.bfloat16):
@@ -174,7 +175,8 @@ def nhwc_pass1(x, fp, *, activation="hswish", ksize=3, h_dtype=None,
     """Pass 1 on the card: (h in ``h_dtype`` (default x's dtype),
     (B, n_tiles, C_mid) float32 partial sums, one row per
     :func:`pass1_tile` tile). bf16 x runs the tensor-core kernel on
-    ``fp.w1_packed`` (computed here when ``fp`` lacks it), staged as
+    ``fp.w1_packed`` (h in bf16) or ``fp.w1_packed3`` (h in float32: W1 in
+    three bf16 terms), computed here when ``fp`` lacks it, staged as
     :func:`pass1_staging` says; float32 x runs the float32 kernel. Raises
     for a tensor that is not on a CUDA device; ``count`` names the launch
     count it raises."""
@@ -190,7 +192,9 @@ def nhwc_pass1(x, fp, *, activation="hswish", ksize=3, h_dtype=None,
     cm = fp.w1.shape[1]
     bf16 = x.dtype == torch.bfloat16
     packed = None
-    if bf16:
+    if bf16 and h_dtype == torch.float32:
+        packed = fp.w1_packed3 if fp.w1_packed3 is not None else pack_w1(fp.w1, terms=3)
+    elif bf16:
         packed = fp.w1_packed if fp.w1_packed is not None else pack_w1(fp.w1)
     h = torch.empty((bsz, hh, ww, cm), dtype=h_dtype, device=x.device)
     psum = torch.empty((bsz, pass1_tiles(hh, ww, ksize, x.dtype), cm), dtype=torch.float32,
@@ -208,10 +212,28 @@ def nhwc_pass1(x, fp, *, activation="hswish", ksize=3, h_dtype=None,
     return h, psum
 
 
+def nhwc_pass2_staging(h: torch.Tensor, x: torch.Tensor, skip: str) -> Optional[str]:
+    """How the tensor-core pass 2 stages h (bf16 or float32) and bf16 x:
+    ``"tma"`` (C_mid % 8 == 0 and h 16-byte aligned, and unless ``skip``
+    (resolved) is "none" C_in % 8 == 0 and x 16-byte aligned: TMA needs
+    16-byte pixel strides, and the identity skip reads x 16 bytes a load)
+    or ``"plain"``; None for float32 x (the float32 kernel)."""
+    if x.dtype != torch.bfloat16:
+        return None
+    ok = h.shape[-1] % 8 == 0 and h.data_ptr() % 16 == 0
+    if skip != "none":
+        ok = ok and x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0
+    return "tma" if ok else "plain"
+
+
 def nhwc_pass2(h, x, gate, fp, *, skip="auto", count="fused_ir_fat_pass2"):
     """Pass 2 on the card: the block output in x's dtype, reading h in the
-    type pass 1 stored it. Raises for a tensor that is not on a CUDA
-    device; ``count`` names the launch count it raises."""
+    type pass 1 stored it. bf16 x runs the tensor-core kernel on the packed
+    W2, w_sse and Wsk (``fused_mbconv.pass2_operands``), with h in bf16
+    (kernel 2) or float32 (kernel 3, split into bf16 hi + lo in the
+    kernel), staged as :func:`nhwc_pass2_staging` says; float32 x runs the
+    float32 kernel. Raises for a tensor that is not on a CUDA device;
+    ``count`` names the launch count it raises."""
     _on_cuda(x)
     skip = _resolve_skip(fp, skip)
     _cuda_check(x, fp)
@@ -226,14 +248,19 @@ def nhwc_pass2(h, x, gate, fp, *, skip="auto", count="fused_ir_fat_pass2"):
     lib = _kernels()
     out = torch.empty((bsz, hh, ww, cout), dtype=x.dtype, device=x.device)
     conv = skip == "conv"
+    bf16 = x.dtype == torch.bfloat16
+    w2p = ssep = wskp = None
+    if bf16:
+        w2p, ssep, wskp = pass2_operands(fp, skip)
     with torch.cuda.device(x.device):
         status = lib.fused_ir_nhwc_pass2(
             h.data_ptr(), x.data_ptr(), gate.data_ptr(), fp.sse_w.data_ptr(),
             fp.sse_b.data_ptr(), fp.w2.data_ptr(), fp.b2.data_ptr(),
             _ptr(fp.wsk) if conv else None, _ptr(fp.bsk) if conv else None,
+            _ptr(w2p), _ptr(ssep), _ptr(wskp),
             out.data_ptr(), bsz, cin, cm, cout, hh * ww,
-            ("none", "identity", "conv").index(skip),
-            int(x.dtype == torch.bfloat16), int(h.dtype == torch.bfloat16),
+            ("none", "identity", "conv").index(skip), int(bf16),
+            int(h.dtype == torch.bfloat16), int(nhwc_pass2_staging(h, x, skip) == "tma"),
             torch.cuda.current_stream().cuda_stream,
         )
     _check_status(status, "fused_ir_nhwc_pass2")

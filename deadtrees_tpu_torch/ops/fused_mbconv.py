@@ -45,11 +45,11 @@ SKIPS = ("auto", "identity", "conv", "none")
 
 class FoldedBlockParams(NamedTuple):
     """BN-folded weights of one InvertedResidual (inference), float32;
-    the ``*_packed`` fields are the bf16 hi + lo splits that the
+    the ``*_packed*`` fields are the bf16 hi + lo splits that the
     tensor-core kernels read (W1 for pass 1, W2, Wsk and w_sse for pass 2:
-    :func:`pack_w1`, :func:`pack_sse`), filled by
-    :func:`fold_inverted_residual` and computed by the wrappers when a
-    hand-built tuple lacks them."""
+    :func:`pack_w1`, :func:`pack_sse`; W1 in three terms for the NHWC pass
+    1 with float32 h), filled by :func:`fold_inverted_residual` and
+    computed by the wrappers when a hand-built tuple lacks them."""
 
     w1: torch.Tensor  # (C_in, C_mid) expand pointwise (folded bn)
     b1: torch.Tensor  # (C_mid,)
@@ -69,6 +69,7 @@ class FoldedBlockParams(NamedTuple):
     w2_packed: Optional[torch.Tensor] = None  # bf16, pack_w1(w2)
     wsk_packed: Optional[torch.Tensor] = None  # bf16, pack_w1(wsk), or None
     sse_packed: Optional[torch.Tensor] = None  # bf16, pack_sse(sse_w)
+    w1_packed3: Optional[torch.Tensor] = None  # bf16, pack_w1(w1, terms=3)
 
 
 # the tensor-core products' blocking (csrc/tc_expand.cuh kCmb, kKc)
@@ -76,34 +77,40 @@ PACK_MID = 64  # product rows (mid channels in pass 1, outputs in pass 2) a bloc
 PACK_IN = 32  # input channels a chunk
 
 
-def split_w1(w1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """W1 as bf16 hi = bf16(W1) and lo = bf16(W1 - hi): hi + lo is within
-    about 2^-16·|W1| of W1, so x·hi + x·lo keeps the float32 product's
-    accuracy for bf16 x."""
-    w = w1.float()
-    hi = w.to(torch.bfloat16)
-    return hi, (w - hi.float()).to(torch.bfloat16)
+def split_w1(w1: torch.Tensor, terms: int = 2) -> Tuple[torch.Tensor, ...]:
+    """W1 as ``terms`` bf16 terms, each the bf16 rounding of what the
+    ones before it leave: hi = bf16(W1), lo = bf16(W1 - hi) (and lo2 =
+    bf16(W1 - hi - lo)). hi + lo is within about 2^-16·|W1| of W1, hi + lo
+    + lo2 within about 2^-24·|W1|, so x·hi + x·lo (+ x·lo2) keeps the
+    float32 product's accuracy for bf16 x."""
+    rest = w1.float()
+    out = []
+    for _ in range(terms):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return tuple(out)
 
 
-def pack_w1(w1: torch.Tensor) -> torch.Tensor:
+def pack_w1(w1: torch.Tensor, terms: int = 2) -> torch.Tensor:
     """W1 (C_in, C_mid) float32 → the bf16 operand of the tensor-core
     pass 1, in the order the product reads it, zero-padded to whole
-    blocks: (ceil(C_mid/64), ceil(C_in/32), k16 step 2, [hi, lo], m16 tile
-    4, lane 32, 8). Lane l = 4g + t holds the mma.m16n8k16 A fragment of
-    its 16×16 tile of W1ᵀ: rows g, g+8 × columns 2t, 2t+1 in register
-    order (row g, row g+8) for columns 2t.., then the same for 2t+8..
-    Pass 2 packs W2 (C_mid, C_out) and Wsk (C_in, C_out) the same way:
-    their rows are then the output channels."""
+    blocks: (ceil(C_mid/64), ceil(C_in/32), k16 step 2, term (hi, lo and,
+    with ``terms=3``, lo2: :func:`split_w1`), m16 tile 4, lane 32, 8). Lane
+    l = 4g + t holds the mma.m16n8k16 A fragment of its 16×16 tile of W1ᵀ:
+    rows g, g+8 × columns 2t, 2t+1 in register order (row g, row g+8) for
+    columns 2t.., then the same for 2t+8.. Pass 2 packs W2 (C_mid, C_out)
+    and Wsk (C_in, C_out) the same way: their rows are then the output
+    channels."""
     cin, cm = w1.shape
     mb, kc = -(-cm // PACK_MID), -(-cin // PACK_IN)
     wt = torch.zeros((mb * PACK_MID, kc * PACK_IN), dtype=torch.float32, device=w1.device)
     wt[:cm, :cin] = w1.float().t()
-    hl = torch.stack(split_w1(wt))  # (2, M, K)
+    hl = torch.stack(split_w1(wt, terms))  # (terms, M, K)
     # M = mb·64 + mt·16 + rh·8 + g; K = kc·32 + ks·16 + ch·8 + t·2 + e
-    hl = hl.reshape(2, mb, 4, 2, 8, kc, 2, 2, 4, 2)
-    # -> (mb, kc, ks, hl, mt, g, t, ch, rh, e)
+    hl = hl.reshape(terms, mb, 4, 2, 8, kc, 2, 2, 4, 2)
+    # -> (mb, kc, ks, term, mt, g, t, ch, rh, e)
     return hl.permute(1, 5, 6, 0, 2, 4, 8, 7, 3, 9).reshape(
-        mb, kc, 2, 2, 4, 32, 8).contiguous()
+        mb, kc, 2, terms, 4, 32, 8).contiguous()
 
 
 def pack_sse(sse_w: torch.Tensor) -> torch.Tensor:
@@ -172,6 +179,7 @@ def fold_inverted_residual(block: InvertedResidual) -> FoldedBlockParams:
         sse_w=sse_w, sse_b=c(sse[0].bias),
         w2=w2, b2=b2, wsk=wsk, bsk=bsk, w1_packed=pack_w1(w1), w2_packed=pack_w1(w2),
         wsk_packed=None if wsk is None else pack_w1(wsk), sse_packed=pack_sse(sse_w),
+        w1_packed3=pack_w1(w1, terms=3),
     )
 
 
@@ -312,7 +320,7 @@ def _cuda_check(x: torch.Tensor, fp: FoldedBlockParams) -> None:
     for name, t in fp._asdict().items():
         if t is None:
             continue
-        dtype = torch.bfloat16 if name.endswith("_packed") else torch.float32
+        dtype = torch.bfloat16 if "_packed" in name else torch.float32
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
                 f"folded {name} must be a contiguous {dtype} tensor on {x.device}"
@@ -320,10 +328,11 @@ def _cuda_check(x: torch.Tensor, fp: FoldedBlockParams) -> None:
     cin, cm = fp.w1.shape
     cout = fp.w2.shape[1]
 
-    def blocks(rows, k):
-        return (-(-rows // PACK_MID), -(-k // PACK_IN), 2, 2, 4, 32, 8)
+    def blocks(rows, k, terms=2):
+        return (-(-rows // PACK_MID), -(-k // PACK_IN), 2, terms, 4, 32, 8)
 
     for name, want, how in (("w1_packed", blocks(cm, cin), "pack_w1(w1)"),
+                            ("w1_packed3", blocks(cm, cin, 3), "pack_w1(w1, terms=3)"),
                             ("w2_packed", blocks(cout, cm), "pack_w1(w2)"),
                             ("wsk_packed", blocks(cout, cin), "pack_w1(wsk)"),
                             ("sse_packed", (-(-cm // PACK_IN), 2, 32, 8), "pack_sse(sse_w)")):

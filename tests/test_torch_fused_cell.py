@@ -12,7 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_fused_mbconv import _carried_block, _flax_block, _random_folded
+from test_torch_fused_mbconv import (
+    _carried_block,
+    _flax_block,
+    _random_folded,
+    _tensor_core_pass2,
+)
 
 from deadtrees_tpu.ops import fused_cell as jfc
 from deadtrees_tpu.ops import fused_mbconv as jfm
@@ -102,6 +107,77 @@ def test_fat_bfloat16_matches_jax():
         assert got.dtype == torch.bfloat16
         err = np.abs(got.float().numpy() - want).max()
         assert err < 2e-2 * max(1.0, np.abs(want).max()), f"max err {err}"
+
+
+# the tensor-core NHWC pass 2 against its plain version, both in float32 on
+# the same h: the splits' remainders (below 2⁻¹⁶ of each product term)
+TC_PASS2_F32_BAR = 1e-5
+
+
+@pytest.mark.parametrize("h_dtype", [torch.bfloat16, torch.float32], ids=["h-bf16", "h-f32"])
+@pytest.mark.parametrize("cin,cout,skip", [(24, 16, "conv"), (40, 40, "identity"),
+                                           (72, 48, "conv")])
+def test_tensor_core_nhwc_pass2_arithmetic_matches_jax(h_dtype, cin, cout, skip):
+    """The tensor-core NHWC pass 2 restated in numpy (W2, the re-split
+    (W2 ⊙ gate) and Wsk as bf16 hi + lo A operands, out = acc_g + s·acc_p;
+    float32 h split into bf16 hi + lo as the kernel splits it), after the
+    plain pass 1 and the cSE gate on x holding bf16 values. h in bf16
+    (kernel 2): against ``fused_ir_fat`` on bf16 x, under the bf16 bar of
+    test_fat_bfloat16_matches_jax. h in float32 (kernel 3): against
+    ``fused_inverted_residual`` on the same values in float32, at the JAX
+    tests' 1e-3. Both: against the port's plain pass 2 on the same h, in
+    float32, within TC_PASS2_F32_BAR·max(1, max|ref|)."""
+    rng = np.random.default_rng(cin + cout)
+    fp_j, fp = _random_folded(rng, cin, cin, cout, 3, skip)
+    hw = 16
+    x = jnp.asarray(rng.normal(size=(2, hw, hw, cin)), jnp.bfloat16)
+    x32 = torch.from_numpy(np.asarray(x.astype(jnp.float32)))  # bf16 values in float32
+    x_in = x32.to(torch.bfloat16) if h_dtype == torch.bfloat16 else x32
+    h, sums = tfc.nhwc_pass1_reference(x_in, fp, h_dtype=h_dtype)
+    gate = tfm.cse_gate(sums.sum(1), fp, hw * hw)
+
+    def pixels_last(t):  # (B, H, W, C) -> (B, C, H·W)
+        return t.reshape(2, hw * hw, -1).transpose(1, 2)
+
+    got = _tensor_core_pass2(pixels_last(h), pixels_last(x32), gate, fp, skip,
+                             split_h=h_dtype == torch.float32)
+    got = torch.from_numpy(got).transpose(1, 2).reshape(2, hw, hw, cout)
+    plain = tfc.nhwc_pass2_reference(h, x32, gate, fp, skip=skip)
+    err = float((got - plain).abs().max())
+    assert err < TC_PASS2_F32_BAR * max(1.0, float(plain.abs().max())), err
+    if h_dtype == torch.bfloat16:
+        want = np.asarray(jfc.fused_ir_fat(x, fp_j, interpret=True, skip=skip)
+                          .astype(jnp.float32))
+        got = got.to(torch.bfloat16).float().numpy()
+        err = np.abs(got - want).max()
+        assert err < 2e-2 * max(1.0, np.abs(want).max()), f"max err {err}"
+    else:
+        want = np.asarray(jfm.fused_inverted_residual(x.astype(jnp.float32), fp_j,
+                                                      interpret=True))
+        err = np.abs(got.numpy() - want).max()
+        assert err < 1e-3, f"max err {err}"
+
+
+def test_nhwc_pass2_staging():
+    """TMA stages bf16 x's pass 2 when C_mid % 8 == 0 and h is 16-byte
+    aligned, and, unless the skip is "none", C_in % 8 == 0 and x 16-byte
+    aligned; plain loads otherwise; float32 x has no staging (the float32
+    kernel)."""
+    def t(c, dtype=torch.bfloat16, offset=0):
+        n = 2 * 4 * 4 * c
+        return torch.zeros((n + offset,), dtype=dtype)[offset:].view(2, 4, 4, c)
+
+    for h_dtype in (torch.bfloat16, torch.float32):
+        h = t(64, h_dtype)
+        assert all(tfc.nhwc_pass2_staging(h, t(48), s) == "tma"
+                   for s in ("conv", "identity", "none"))
+        assert tfc.nhwc_pass2_staging(t(64, h_dtype, 1), t(48), "none") == "plain"
+        assert tfc.nhwc_pass2_staging(t(60, h_dtype), t(48), "none") == "plain"
+        for x in (t(48, offset=1), t(44)):  # misaligned view, C_in % 8 != 0
+            assert tfc.nhwc_pass2_staging(h, x, "conv") == "plain"
+            assert tfc.nhwc_pass2_staging(h, x, "identity") == "plain"
+            assert tfc.nhwc_pass2_staging(h, x, "none") == "tma"  # x is not read
+    assert tfc.nhwc_pass2_staging(t(64, torch.float32), t(48, torch.float32), "conv") is None
 
 
 def test_h_dtype_of_the_two_kernels():

@@ -163,9 +163,10 @@ def test_jax_fold_is_what_the_kernel_reads():
     orientation (output channel last), so one FoldedBlockParams layout
     serves both packages: the JAX fields in JAX's order, then the port's
     optional bf16 splits for its tensor-core passes (W1 for pass 1; W2,
-    Wsk and w_sse for pass 2)."""
+    Wsk and w_sse for pass 2; W1 in three terms for the NHWC pass 1 with
+    float32 h)."""
     n = len(jfm.FoldedBlockParams._fields)
-    packed = ("w1_packed", "w2_packed", "wsk_packed", "sse_packed")
+    packed = ("w1_packed", "w2_packed", "wsk_packed", "sse_packed", "w1_packed3")
     assert tfm.FoldedBlockParams._fields[:n] == jfm.FoldedBlockParams._fields
     assert tfm.FoldedBlockParams._fields[n:] == packed
     assert tfm.FoldedBlockParams._field_defaults == dict.fromkeys(packed)

@@ -177,18 +177,32 @@ def test_w1_split_reconstructs_w1(cin, cm):
     assert bool((err <= 2.0 ** -16 * w1.abs()).all()), float(err.max())
 
 
+@pytest.mark.parametrize("cin,cm", [(16, 16), (48, 40), (688, 688)])
+def test_w1_split_in_three_terms_reconstructs_w1(cin, cm):
+    """hi + lo + lo2 (the NHWC pass 1 with float32 h) rebuilds W1 within
+    2⁻²⁴·|W1|; its first two terms are the two-term split."""
+    rng = np.random.default_rng(cin + 1)
+    w1 = torch.tensor(rng.normal(0, cin ** -0.5, (cin, cm)), dtype=torch.float32)
+    w1[0, 0] = 0.0
+    parts = tfm.split_w1(w1, 3)
+    assert len(parts) == 3 and all(t.dtype == torch.bfloat16 for t in parts)
+    assert all(torch.equal(a, b) for a, b in zip(parts, tfm.split_w1(w1)))
+    err = (sum(t.double() for t in parts) - w1.double()).abs()
+    assert bool((err <= 2.0 ** -24 * w1.double().abs()).all()), float(err.max())
+
+
 def _fragment_unpack(packed, cin, cm):
     """W1 back from the packed operand by the mma.m16n8k16 A-fragment
     layout of the PTX ISA (row-major A, bf16): lane l = 4g + t holds
     a0,a1 = A[g][2t, 2t+1], a2,a3 = A[g+8][2t, 2t+1], a4,a5 = A[g][2t+8,
     2t+9], a6,a7 = A[g+8][2t+8, 2t+9] of each 16×16 tile of W1ᵀ."""
-    mb, kc = packed.shape[:2]
-    out = np.zeros((2, mb * 64, kc * 32), np.float32)  # [hi, lo] W1ᵀ
+    mb, kc, _, terms = packed.shape[:4]
+    out = np.zeros((terms, mb * 64, kc * 32), np.float32)  # [hi, lo(, lo2)] W1ᵀ
     p = packed.float().numpy()
     for b in range(mb):
         for c in range(kc):
             for ks in range(2):
-                for hl in range(2):
+                for hl in range(terms):
                     for mt in range(4):
                         for lane in range(32):
                             g, t = divmod(lane, 4)
@@ -216,6 +230,21 @@ def test_pack_w1_follows_the_mma_fragment_layout(cin, cm):
     assert not full[:, cm:].any() and not full[:, :, cin:].any()
 
 
+@pytest.mark.parametrize("cin,cm", [(16, 16), (96, 130)])
+def test_pack_w1_in_three_terms_follows_the_mma_fragment_layout(cin, cm):
+    """pack_w1(w1, terms=3), kernel 3's NHWC pass 1 operand: hi, lo and
+    lo2 of each fragment side by side, in the two-term pack's order."""
+    rng = np.random.default_rng(cm + 1)
+    w1 = torch.tensor(rng.normal(0, 0.3, (cin, cm)), dtype=torch.float32)
+    packed = tfm.pack_w1(w1, terms=3)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert tuple(packed.shape) == (-(-cm // 64), -(-cin // 32), 2, 3, 4, 32, 8)
+    got = _fragment_unpack(packed, cin, cm)
+    for term, want in zip(got, tfm.split_w1(w1, 3), strict=True):
+        np.testing.assert_array_equal(term, want.float().t().numpy())
+    assert torch.equal(packed[:, :, :, :2], tfm.pack_w1(w1))
+
+
 @pytest.mark.parametrize("cin,cout", [(24, 16), (688, 256)])
 def test_split_w1_block_matches_jax_bfloat16(cin, cout):
     """The plain block fed W1 rebuilt as float(hi) + float(lo), the
@@ -237,13 +266,15 @@ def test_split_w1_block_matches_jax_bfloat16(cin, cout):
 
 
 def test_fold_fills_the_packed_weights():
-    """fold_inverted_residual stores pack_w1(w1) (and pass 2's operands:
-    pack_w1(w2), pack_w1(wsk), pack_sse(sse_w)), the operands that the
-    wrappers compute for a hand-built FoldedBlockParams without them."""
+    """fold_inverted_residual stores pack_w1(w1), pack_w1(w1, terms=3)
+    (and pass 2's operands: pack_w1(w2), pack_w1(wsk), pack_sse(sse_w)),
+    the operands that the wrappers compute for a hand-built
+    FoldedBlockParams without them."""
     _, _, variables = _flax_block(40, 24, 8, seed=6)
     fp = tfm.fold_inverted_residual(_carried_block(variables, 40, 24))
     assert fp.w1_packed is not None
     assert torch.equal(fp.w1_packed, tfm.pack_w1(fp.w1))
+    assert torch.equal(fp.w1_packed3, tfm.pack_w1(fp.w1, terms=3))
     n = len(jfm.FoldedBlockParams._fields)
     hand = tfm.FoldedBlockParams(*fp[:n])
     assert hand.w1_packed is None
@@ -258,6 +289,10 @@ def test_fold_fills_the_packed_weights():
         tfm._cuda_check(x, fp._replace(w1_packed=fp.w1_packed.float()))
     with pytest.raises(ValueError, match="w1_packed"):
         tfm._cuda_check(x, fp._replace(w1_packed=fp.w1_packed[:, :1].contiguous()))
+    with pytest.raises(ValueError, match="w1_packed3"):  # two terms where three belong
+        tfm._cuda_check(x, fp._replace(w1_packed3=fp.w1_packed))
+    with pytest.raises(ValueError, match="w1_packed3"):
+        tfm._cuda_check(x, fp._replace(w1_packed3=fp.w1_packed3.float()))
 
 
 def test_a_probe_build_is_a_library_of_its_own():
@@ -331,12 +366,15 @@ def _bf16_split(a):
     return hi.float().numpy(), lo.float().numpy()
 
 
-def _tensor_core_pass2(h, x, gate, fp, skip):
+def _tensor_core_pass2(h, x, gate, fp, skip, split_h=False):
     """The tensor-core pass 2's arithmetic in numpy float32, from the
     packed operands it reads: z = (hi + lo)(w_sse)·h; acc_p = W2ᵀh with
     W2 = hi + lo; acc_g = (W2 ⊙ gate)ᵀh, the gated weights formed per image
     from hi + lo and split again into hi + lo (+ Wskᵀx with Wsk = hi + lo);
-    out = acc_g + σ(z + b_sse)·acc_p + b2 (+ bsk, or + x)."""
+    out = acc_g + σ(z + b_sse)·acc_p + b2 (+ bsk, or + x). h and x are
+    (B, C, pixels). With ``split_h`` (float32 h, the NHWC kernel 3) h is
+    split into bf16 hi + lo and each product sums Ahi·hhi + Alo·hhi +
+    Ahi·hlo, the sSE logit also Alo·hlo."""
     cin, cm = fp.w1.shape
     cout = fp.w2.shape[1]
     w2 = _fragment_unpack(tfm.pack_w1(fp.w2), cm, cout)  # [hi, lo] of W2ᵀ
@@ -344,12 +382,20 @@ def _tensor_core_pass2(h, x, gate, fp, skip):
     hf = h.float().numpy()  # (B, C_mid, P) as stored
     xf = x.float().numpy()
     out = np.empty((hf.shape[0], cout, hf.shape[2]), np.float32)
+
+    def product(a_hi, a_lo, hb, hb_lo):
+        acc = a_hi @ hb + a_lo @ hb
+        return acc if hb_lo is None else acc + a_hi @ hb_lo
+
     for b in range(hf.shape[0]):
-        z = sse[0] @ hf[b] + sse[1] @ hf[b]
+        hb, hb_lo = _bf16_split(hf[b]) if split_h else (hf[b], None)
+        z = sse[0] @ hb + sse[1] @ hb
+        if split_h:
+            z = z + sse[0] @ hb_lo + sse[1] @ hb_lo
         s = 1.0 / (1.0 + np.exp(-(z + fp.sse_b.numpy()[0])))
-        acc_p = w2[0] @ hf[b] + w2[1] @ hf[b]
+        acc_p = product(w2[0], w2[1], hb, hb_lo)
         ghi, glo = _bf16_split((w2[0] + w2[1]) * gate.numpy()[b][None, :])
-        acc_g = ghi @ hf[b] + glo @ hf[b]
+        acc_g = product(ghi, glo, hb, hb_lo)
         o = acc_g + s[None, :] * acc_p + fp.b2.numpy()[:, None]
         if skip == "conv":
             wsk = _fragment_unpack(tfm.pack_w1(fp.wsk), cin, cout)
