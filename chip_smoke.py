@@ -65,6 +65,22 @@ Phases (each raises on failure, so the script exits non-zero):
    also with the L2 cache emptied before each repetition, each shape's
    share of its bound and the host time of one call of each; device time
    by group and idle share of the nhwc route at bs 32 and 128.
+12. Scenes (the fourth main path, run after phase 11; no kernel of the
+   port lies on it): ``predict_scene`` on a ragged 1500×2030 scene in a
+   2048² tile (bs 128) equal to the plain model's argmax over the same
+   128-subtile chunk, its padding subtiles zero, and agreeing with
+   ``TorchInference.run`` at bs 16; ``predict_scenes`` on 17 scenes of
+   2048² (groups of 8, 8 and a padded 1) equal to per-scene calls; its
+   throughput on 16 scenes beside the plain bs-128 rate of phase 11, the
+   device's idle share (torch.profiler) and the time split of one
+   dispatch; ``EnsembleInference`` (3 × the flagship equal to one member,
+   a heterogeneous trio equal to the flagship, an even N raises); the
+   scene CLI end to end in a process of its own (retile a 4096²
+   GeoTIFF, an empty tile skipped, outputs equal to ``predict_scenes``
+   with their tags, the mosaic's bounds; one 3-checkpoint run of the
+   CLI's ``main`` in this process). A
+   ``scenes`` line with these numbers and the card comes before the
+   kernels line.
 
 The last line is the device record; the line before it the card's name
 and power limit, and before that one JSON object describing the kernels
@@ -84,6 +100,7 @@ import contextlib
 import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -143,6 +160,11 @@ EDT_BAR = 1e-4
 TRAIN_BS = 16
 TRAIN_STEPS = 4  # limit_train_batches per epoch
 VAL_STEPS = 2
+SCENE = 2048  # the production orthophoto tile
+SCENE_BS = 128
+SCENE_RAGGED = (1500, 2030)  # 3 x 4 of the 4 x 4 subtiles hold data
+SCENE_PX = 0.2
+SCENE_X0, SCENE_Y0 = 500000.0, 5400000.0
 
 
 def log(msg: str) -> None:
@@ -1046,7 +1068,8 @@ def _add_time(t, ms, pms, nbytes, flops, mult=1, mm_flops=0, tensor_cores=False)
 
 def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
     """Route latencies, the new kernels' times, the NHWC route's profile.
-    Returns the per-kernel time rows."""
+    Returns the per-kernel time rows and the route latencies by batch size
+    ({bs: {route: ms}})."""
     import torch
     import torch.nn.functional as F
 
@@ -1057,6 +1080,7 @@ def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
 
     chw = TorchInference(path, fused_decoder="chw")
     rng = np.random.default_rng(SEED + 14)
+    route_ms = {}
     log(f"latency by route (median, host clock around run(), H2D and D2H included; "
         f"rounds of plain, chw, nhwc, nhwc, chw, plain) on {card}")
     for bs, rounds in ((1, 7), (4, 7), (32, 4), (128, 2)):
@@ -1072,6 +1096,7 @@ def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
                 engines[label].run(img)
                 times[label].append(time.perf_counter() - t0)
         med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+        route_ms[bs] = med
         log(f"  bs {bs:>3}: nhwc {med['nhwc']:.3f} ms, chw {med['chw']:.3f} ms, plain "
             f"{med['plain']:.3f} ms ({bs * 1e3 / med['nhwc']:.2f} / "
             f"{bs * 1e3 / med['chw']:.2f} / {bs * 1e3 / med['plain']:.2f} img/s; "
@@ -1167,7 +1192,7 @@ def phase_nhwc_timings(path: Path, model, nhwc, plain, card: str, errs):
         f"{t['bound_ms'] / cold:.1%}); host time of the 35 calls {host:.4f} ms, of the "
         f"library's {lib_host:.4f} ms (mean of 200 calls a shape, card kept busy)")
     torch.cuda.empty_cache()
-    return tot
+    return tot, route_ms
 
 
 def phase_nhwc_profile(nhwc, card: str) -> None:
@@ -1573,6 +1598,286 @@ def _one_host_batch(dm) -> dict:
         producer.stop()
 
 
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+
+
+def _device_busy_ms(events) -> tuple:
+    """(union of the device's busy intervals, ms by kind) over a trace's
+    kernel, copy and memset events; the union counts a copy that overlaps
+    a kernel on another stream once."""
+    spans, kinds = [], {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        name = e.get("name", "")
+        kind = ("H2D" if "HtoD" in name else "D2H" if "DtoH" in name
+                else "kernels" if e["cat"] == "kernel" else "other copies")
+        kinds[kind] = kinds.get(kind, 0.0) + e["dur"] / 1e3
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3, kinds
+
+
+def _geo_tags(x0: float, y0: float) -> dict:
+    return {33550: (SCENE_PX, SCENE_PX, 0.0), 33922: (0.0, 0.0, 0.0, x0, y0, 0.0),
+            34737: "ETRS89 / UTM 32N|"}
+
+
+def phase_scenes(path: Path, hp, plain, plain_bs128_ms: float, card: str) -> dict:
+    """The scene path (the fourth main path): ``predict_scene`` on a
+    ragged scene against the plain model over the same chunk,
+    ``predict_scenes`` against per-scene calls, its throughput, idle share
+    and time split, the ensemble, and the scene CLI end to end. Returns
+    the numbers for the scenes line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deadtrees_tpu_torch.core import save_checkpoint
+    from deadtrees_tpu_torch.data import normalize
+    from deadtrees_tpu_torch.geo import retile
+    from deadtrees_tpu_torch.infer import (
+        EnsembleInference,
+        Tiler,
+        make_blocks_nhwc,
+        make_scene_predictor,
+        predict_scene,
+        predict_scenes,
+        unmake_blocks_nhwc,
+        unpack2,
+    )
+    from deadtrees_tpu_torch.infer import scene as scene_cli
+    from deadtrees_tpu_torch.infer.geotiff import GEO_TAGS, GeoImage, read_geotiff, write_geotiff
+    from deadtrees_tpu_torch.models import create_model, init_model, variables_from_state_dict
+
+    t_phase = time.perf_counter()
+    model = plain.model
+    tile = (SCENE, SCENE)
+    kw = dict(tile_shape=tile, subtile=IMG, batch_size=SCENE_BS)
+    rng = np.random.default_rng(SEED + 30)
+    out = {"plain_bs128_ms": plain_bs128_ms}
+
+    # a ragged scene: the predictor's raw map is the plain model's argmax
+    # over the same 128-subtile chunk, masked; subtiles beyond the scene are 0
+    h, w = SCENE_RAGGED
+    scene = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    tiler = Tiler(tile_shape=tile, subtile_shape=(IMG, IMG))
+    tiler.load_array(scene)
+    valid = tiler.subtiles_to_use
+    raw_fn = make_scene_predictor(model, subtile=IMG, batch_size=SCENE_BS)
+    raw = raw_fn(torch.from_numpy(tiler._indata), torch.from_numpy(valid)).cpu().numpy()
+    blocks = make_blocks_nhwc(torch.from_numpy(tiler._indata).cuda(), IMG)
+    n = blocks.shape[0]
+    chunk = torch.cat([blocks, blocks.new_zeros((SCENE_BS - n,) + blocks.shape[1:])])
+    with torch.no_grad():
+        x = normalize(chunk.float(), plain.mean, plain.std).permute(0, 3, 1, 2).contiguous()
+        ref = model(x).argmax(1).to(torch.uint8)[:n]
+    ref = ref * torch.from_numpy(valid).cuda().to(torch.uint8)[:, None, None]
+    ref = unmake_blocks_nhwc(ref, *tile).cpu().numpy()
+    del blocks, chunk, x
+    rows = -(-h // IMG)
+    assert int(valid.sum()) == rows * (-(-w // IMG)) < n, valid
+    if not np.array_equal(raw, ref):
+        raise AssertionError(f"scene predictor vs the plain model's argmax: "
+                             f"{int((raw != ref).sum())} pixels differ")
+    assert not raw[rows * IMG:].any() and raw[:h, :w].any()
+    got = predict_scene(model, scene, **kw)
+    assert got.shape == (h, w) and np.array_equal(got, raw[:h, :w])
+    eng = plain.run(tiler.get_all_batches())  # bs 16, argmax of the softmax
+    tiler.put_all_batches(eng * valid[:, None, None])
+    agree = float((tiler.prediction == got).mean())
+    out["ragged_agreement"] = agree
+    log(f"scene {h}x{w} in a {SCENE}² tile (bs {SCENE_BS}, {int(valid.sum())} of {n} "
+        f"subtiles valid): predictor equal to the plain model's argmax over the same "
+        f"chunk, {n - int(valid.sum())} padding subtiles zero; agreement with "
+        f"TorchInference.run at bs {n}: {agree:.6f} (bar {AGREE_BF16})")
+    assert agree >= AGREE_BF16, agree
+
+    # 17 scenes: two full groups of 8 and a tail of 1, each equal to its own call
+    stack = rng.integers(0, 256, (17,) + tile + (4,), dtype=np.uint8)
+    scenes = list(stack)
+    t0 = time.perf_counter()
+    batched = predict_scenes(model, scenes, **kw)
+    t_batched = time.perf_counter() - t0
+    packed_fn = make_scene_predictor(model, subtile=IMG, batch_size=SCENE_BS, packed=True)
+    for i, sc in enumerate(scenes):
+        single = predict_scene(model, sc, predictor=packed_fn, **kw)
+        if not np.array_equal(batched[i], single):
+            raise AssertionError(f"predict_scenes vs predict_scene, scene {i}: "
+                                 f"{int((batched[i] != single).sum())} pixels differ")
+    log(f"predict_scenes on 17 scenes of {SCENE}² (groups 8, 8, 1 + 7 zero scenes) "
+        f"equal to 17 predict_scene calls; {t_batched:.3f} s (first call)")
+    del batched
+
+    # throughput: 16 scenes, median of 3 after a warm-up
+    scenes = scenes[:16]
+    tiles = 16 * (SCENE // IMG) ** 2
+    predict_scenes(model, scenes, **kw)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_scenes(model, scenes, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall = statistics.median(times)
+    out.update(scene_tiles_per_s=tiles / wall, scenes_per_s=16 / wall, wall_ms=wall * 1e3,
+               plain_rate=SCENE_BS * 1e3 / plain_bs128_ms)
+    out["rate_vs_plain"] = out["scene_tiles_per_s"] / out["plain_rate"]
+    trace = REPO / "build" / "chip_smoke" / "trace_scenes.json"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        predict_scenes(model, scenes, **kw)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(trace))
+    busy, kinds = _device_busy_ms(json.loads(trace.read_text())["traceEvents"])
+    if not kinds:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    out.update(idle_share=1 - busy / prof_wall, profiled_wall_ms=prof_wall,
+               device_ms_by_kind=kinds)
+
+    # the time split of one dispatch of 8 scenes, each part alone
+    g = SCENE_BS // (SCENE // IMG) ** 2
+    pinned = torch.empty((g,) + tile + (4,), dtype=torch.uint8, pin_memory=True)
+    t0 = time.perf_counter()
+    for j in range(g):
+        pinned[j].numpy()[:] = scenes[j]
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    valid8 = torch.ones((g, (SCENE // IMG) ** 2), dtype=torch.bool, device="cuda")
+    dev = pinned.cuda()
+    h2d_ms = cuda_time_ms(lambda: dev.copy_(pinned, non_blocking=True), reps=5, warmup=1)
+    fwd_ms = cuda_time_ms(lambda: packed_fn(dev, valid8), reps=3, warmup=1)
+    packed = packed_fn(dev, valid8)
+    host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+    d2h_ms = cuda_time_ms(lambda: host.copy_(packed, non_blocking=True), reps=5, warmup=1)
+    t0 = time.perf_counter()
+    for j in range(g):
+        unpack2(host[j].numpy(), SCENE)
+    unpack_ms = (time.perf_counter() - t0) * 1e3
+    del dev, packed, pinned, host
+    out["split_ms_per_dispatch"] = dict(stage=stage_ms, h2d=h2d_ms, forward=fwd_ms,
+                                        d2h=d2h_ms, unpack=unpack_ms)
+    serial = 2 * (stage_ms + h2d_ms + fwd_ms + d2h_ms + unpack_ms)
+    log(f"scene throughput on {card}: 16 scenes of {SCENE}² at bs {SCENE_BS} (2 "
+        f"dispatches of {g}): {wall * 1e3:.3f} ms (median of 3 after a warm-up; "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in times)}), {out['scene_tiles_per_s']:.3f} "
+        f"tiles of {IMG}²/s, {out['scenes_per_s']:.3f} scenes/s; the plain engine's bs "
+        f"{SCENE_BS} (phase 11, {plain_bs128_ms:.3f} ms) gives {out['plain_rate']:.3f} "
+        f"tiles/s: ratio {out['rate_vs_plain']:.4f}")
+    log(f"  profile of one 16-scene call: wall {prof_wall:.3f} ms, device busy (union) "
+        f"{busy:.3f} ms, idle {out['idle_share']:.2%}; device ms by kind: "
+        + "; ".join(f"{k} {v:.3f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    log(f"  split of one dispatch of {g} scenes, each part alone: host staging into "
+        f"pinned memory {stage_ms:.3f} ms, H2D {h2d_ms:.3f} ms, forward (blocks, "
+        f"normalize, model, argmax, mask, stitch, pack) {fwd_ms:.3f} ms, D2H "
+        f"{d2h_ms:.3f} ms, host unpack {unpack_ms:.3f} ms; two dispatches one after "
+        f"another would take {serial:.3f} ms against {wall * 1e3:.3f} ms measured")
+
+    # the ensemble: 3 x A equals A's argmax; A, A, B equals A; an even N raises
+    img = rng.integers(0, 256, (4, IMG, IMG, 4), dtype=np.uint8)
+    ens = EnsembleInference([path] * 3)
+    assert ens.homogeneous and len(ens.models) == 3
+    with torch.no_grad():
+        x = normalize(torch.from_numpy(img).cuda().float(), plain.mean, plain.std)
+        one = model(x.permute(0, 3, 1, 2).contiguous()).argmax(1).to(torch.uint8).cpu().numpy()
+    voted = ens.run(img)
+    assert np.array_equal(voted, one), int((voted != one).sum())
+    del ens
+    hp_b = dict(hp, decoder_channels=[128, 64, 32, 16, 16])
+    other = init_model(create_model(**hp_b), generator=torch.Generator().manual_seed(SEED + 1))
+    ckpt_b = path.with_name("flagship_b5_b.ckpt")
+    save_checkpoint(ckpt_b, **variables_from_state_dict(other.state_dict()), hparams=hp_b)
+    del other
+    ens = EnsembleInference([path, path, ckpt_b])
+    assert not ens.homogeneous
+    mixed = ens.run(img)
+    assert np.array_equal(mixed, plain.run(img)), int((mixed != plain.run(img)).sum())
+    del ens
+    try:
+        EnsembleInference([path] * 2)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("an ensemble of 2 did not raise")
+    log(f"ensemble at bs 4: 3 x flagship equal to one member's argmax; flagship, "
+        f"flagship and a b5 with decoder {hp_b['decoder_channels']} (seed {SEED + 1}) "
+        f"equal to the flagship's TorchInference; 2 members raise")
+
+    # the CLI end to end: retile a 4096² GeoTIFF, add an empty tile, predict
+    # every tile, mosaic; then one 3-checkpoint run on one tile
+    work = path.parent / "scene_cli"
+    if work.exists():
+        shutil.rmtree(work)
+    tiles_dir, out_dir = work / "tiles", work / "pred"
+    work.mkdir(parents=True)
+    src_tags = _geo_tags(SCENE_X0, SCENE_Y0)
+    src = work / "ortho_src.tif"
+    big = rng.integers(2, 256, (2 * SCENE, 2 * SCENE, 4), dtype=np.uint8)
+    t0 = time.perf_counter()
+    write_geotiff(src, big, {"tags": src_tags}, compress="none")
+    records = retile(src, tiles_dir, tile_size=SCENE)
+    assert len(records) == 4, records
+    write_geotiff(tiles_dir / "ortho_zero.tif", np.zeros(tile + (4,), np.uint8),
+                  {"tags": _geo_tags(SCENE_X0 - SCENE * SCENE_PX, SCENE_Y0)})
+    t_retile = time.perf_counter() - t0
+    mosaic = work / "mosaic.tif"
+    torch.cuda.empty_cache()  # the CLI's process needs the card's memory
+    cmd = [sys.executable, "-m", "deadtrees_tpu_torch.infer.scene", str(tiles_dir),
+           str(path), "--all", "--outpath", str(out_dir), "--mosaic", str(mosaic)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"scene CLI failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    assert "skip empty scene: ortho_zero.tif" in res.stdout, res.stdout
+    assert not (out_dir / "ortho_zero.tif").exists()
+    names = sorted(r["filename"] for r in records)
+    inputs = [read_geotiff(tiles_dir / nm) for nm in names]
+    want = predict_scenes(model, [t.data for t in inputs], **kw)
+    for nm, inp, wmap in zip(names, inputs, want):
+        outp = read_geotiff(out_dir / nm)
+        if not np.array_equal(outp.data[..., 0], wmap):
+            raise AssertionError(f"CLI output {nm} differs from predict_scenes in "
+                                 f"{int((outp.data[..., 0] != wmap).sum())} pixels")
+        assert outp.geo["tags"] == inp.geo["tags"] and set(outp.geo["tags"]) <= set(GEO_TAGS)
+    m = read_geotiff(mosaic)
+    assert m.data.shape[:2] == (2 * SCENE, 2 * SCENE), m.data.shape
+    assert m.bounds == GeoImage(big, {"tags": src_tags}).bounds, m.bounds
+    whole = np.block([[want[0], want[1]], [want[2], want[3]]])
+    assert np.array_equal(m.data[..., 0], whole)
+    ens_out = work / "pred_ens"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        scene_cli.main([str(tiles_dir / names[0]), str(path), str(path), str(path),
+                        "--outpath", str(ens_out)])
+    t_ens = time.perf_counter() - t0
+    assert f"wrote {ens_out / names[0]}" in printed.getvalue(), printed.getvalue()
+    voted = read_geotiff(ens_out / names[0]).data[..., 0]
+    ens_agree = float((voted == want[0]).mean())
+    assert ens_agree >= AGREE_BF16, ens_agree
+    out.update(cli_s=t_cli, cli_ensemble_s=t_ens, cli_ensemble_agreement=ens_agree)
+    log(f"scene CLI: retiled a {2 * SCENE}² GeoTIFF into {len(records)} tiles + 1 empty "
+        f"({t_retile:.2f} s); the CLI skipped the empty one, wrote {len(names)} maps equal "
+        f"to predict_scenes with their tags, and a {2 * SCENE}² mosaic with the source's "
+        f"bounds, in {t_cli:.2f} s (a process of its own); 3 checkpoints on one tile "
+        f"(the CLI's main() in this process, {t_ens:.2f} s) agree with the single "
+        f"checkpoint's map {ens_agree:.6f}")
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1605,9 +1910,12 @@ def main() -> int:
     errs.update({name: 0.0 for name in (*NHWC_REPLACES, DW)})
     phase_nhwc_kernels(model, errs)
     nhwc, nhwc_counts = phase_nhwc_slice(ckpt, hp, plain)
-    nhwc_tot = phase_nhwc_timings(ckpt, model, nhwc, plain, card, errs)
+    nhwc_tot, route_ms = phase_nhwc_timings(ckpt, model, nhwc, plain, card, errs)
     phase_nhwc_profile(nhwc, card)
-    del plain, model, nhwc
+    del nhwc
+    torch.cuda.empty_cache()
+    scenes = phase_scenes(ckpt, hp, plain, route_ms[SCENE_BS]["plain"], card)
+    del plain, model
     torch.cuda.empty_cache()
     augment_row = phase_augment(card)
     augment_row["launches"] = phase_train(card)
@@ -1644,6 +1952,7 @@ def main() -> int:
             kernels[-1].update({k: t[k] for k in ("cold_ms", "library_cold_ms", "host_ms",
                                                    "library_host_ms")})
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print("scenes " + json.dumps(dict(scenes, card=card)))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,14 +10,15 @@ NHWC uint8 ``(B, H, W, C)`` in, ``(B, H, W)`` uint8 out.
 It runs on CUDA unless the caller passes ``device="cpu"``; with no device
 asked for and no CUDA available it raises. Every option of the JAX
 engine is ported (the fused decoder in both layouts, w8 / w8a8
-quantization, TTA) with its validation; the ensemble and exported engines
-are not ported yet (ROADMAP.md).
+quantization, TTA) with its validation. :class:`EnsembleInference` is the
+odd-N majority vote over checkpoints; the exported engine is not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -221,6 +222,84 @@ class TorchInference(Inference):
         batch = self._slice_channels(np.asarray(batch))
         img = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.uint8))
         return self.predict(img.to(self.device)).cpu().numpy()
+
+
+class EnsembleInference(Inference):
+    """Odd-N majority vote over model checkpoints.
+
+    - Members with equal hparams (the common case) run one after another
+      on the device, each giving the argmax of its logits; the votes are
+      summed as one-hot int32 on the device and the result is their argmax,
+      which picks the smallest class on a tie (``torch.argmax`` returns the
+      first maximal index), as the reference's ``torch.mode`` does.
+    - Mixed architectures or encoders: one :class:`TorchInference` each
+      (argmax of the softmax), the votes summed on the host. Members must
+      agree on ``classes``; ``in_channels`` may differ, each member slices
+      its own, and the widest is kept here.
+
+    Runs on CUDA unless ``device="cpu"``; raises without CUDA."""
+
+    def __init__(
+        self,
+        checkpoints: Sequence[Union[str, Path]],
+        *,
+        device: Optional[Union[str, torch.device]] = None,
+        mean: Sequence[float] = DATASET_CONFIG.mean,
+        std: Sequence[float] = DATASET_CONFIG.std,
+    ):
+        if len(checkpoints) % 2 != 1:
+            raise ValueError(
+                f"Ensemble inference expects odd number of models, got {len(checkpoints)}"
+            )
+        self.device = resolve_device(device)
+        members = [load_model(c, device=self.device) for c in checkpoints]
+        hp0 = members[0][2]
+        self.homogeneous = all(hp == hp0 for _, _, hp in members[1:])
+        self.hparams = hp0
+        self.num_classes = hp0.get("classes", 3)
+        if any(hp.get("classes", 3) != self.num_classes for _, _, hp in members[1:]):
+            raise ValueError(
+                "Ensemble members must agree on `classes` "
+                f"({[hp.get('classes', 3) for _, _, hp in members]})"
+            )
+        self.in_channels = _sniff_in_channels(members[0][1]["params"], hp0)
+        if self.homogeneous:
+            self.models: List[torch.nn.Module] = [m for m, _, _ in members]
+            self.model = self.models[0]
+            self.mean = tuple(mean)[: self.in_channels]
+            self.std = tuple(std)[: self.in_channels]
+        else:
+            del members  # don't hold N models across the re-load
+            self._members = [
+                TorchInference(c, device=self.device, mean=mean, std=std)
+                for c in checkpoints
+            ]
+            self.model = self._members[0].model
+            self.in_channels = max(m.in_channels for m in self._members)
+
+    @torch.no_grad()
+    def _vote(self, img_u8: torch.Tensor) -> torch.Tensor:
+        img = normalize(img_u8.float(), self.mean, self.std).permute(0, 3, 1, 2).contiguous()
+        votes = None
+        for model in self.models:
+            one_hot = torch.nn.functional.one_hot(model(img).argmax(1), self.num_classes)
+            votes = one_hot.int() if votes is None else votes + one_hot.int()
+        return votes.argmax(-1).to(torch.uint8)
+
+    def run(self, batch: np.ndarray) -> np.ndarray:
+        """(B, H, W, C) uint8 → (B, H, W) uint8 majority class map."""
+        batch = np.asarray(batch)
+        if batch.shape[-1] > self.in_channels:
+            batch = batch[..., : self.in_channels]
+        if self.homogeneous:
+            img = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.uint8))
+            return self._vote(img.to(self.device)).cpu().numpy()
+        votes = np.zeros(batch.shape[:3] + (self.num_classes,), np.int32)
+        classes = np.arange(self.num_classes)
+        for member in self._members:
+            preds = member.run(batch)  # member slices its own channels
+            votes += (preds[..., None] == classes).astype(np.int32)
+        return np.argmax(votes, axis=-1).astype(np.uint8)
 
 
 def _map_leaves(tree, fn):

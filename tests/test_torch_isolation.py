@@ -42,6 +42,9 @@ def test_importing_every_module_loads_no_jax():
     modules = _port_modules()
     assert "deadtrees_tpu_torch.ops.fused_mbconv" in modules
     assert "deadtrees_tpu_torch.serve.server" in modules
+    for name in ("infer.blocks", "infer.geotiff", "infer.tiler", "infer.sliding",
+                 "infer.engine", "infer.scene", "geo", "geo.mosaic", "geo.retile"):
+        assert f"deadtrees_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}:\n"

@@ -524,3 +524,33 @@ def test_depthwise_wrapper_raises_on_what_the_kernel_cannot_take(card):
         dwm.depthwise_conv2d(x, k.cpu(), force="cuda")
     with pytest.raises(ValueError, match="device"):
         dwm.depthwise_conv2d(x.cpu(), k.cpu(), force="cuda")
+
+
+def test_scene_batches_match_single_scenes_on_the_card(card, monkeypatch):
+    """``predict_scenes`` (two dispatches in flight, pinned staging, the
+    side stream) gives each scene's ``predict_scene`` map, bit for bit, on
+    a b0 at subtile 64: 5 scenes, 2 a dispatch, so both staging buffers are
+    refilled and the tail group is padded. With CUDA hidden and no device
+    asked for, the scene entry points raise."""
+    import numpy as np
+
+    from deadtrees_tpu_torch.infer import make_scene_predictor, predict_scene, predict_scenes
+    from deadtrees_tpu_torch.models import create_model, init_model
+
+    hp = dict(architecture="efficientunet++", encoder_name="timm-efficientnet-b0",
+              decoder_channels=[24, 16, 16, 8, 8], in_channels=4, classes=3)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        model = init_model(create_model(**hp), generator=gen).to(card).eval()
+    rng = np.random.default_rng(0)
+    scenes = [rng.integers(0, 256, (100, 150, 4), np.uint8) for _ in range(5)]
+    kw = dict(tile_shape=(128, 192), subtile=64, batch_size=4)
+    batched = predict_scenes(model, scenes, scenes_per_dispatch=2, **kw)
+    for scene, got in zip(scenes, batched):
+        assert got.shape == (100, 150) and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, predict_scene(model, scene, **kw))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_scene_predictor(model, subtile=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predict_scenes(model, scenes[:1], **kw)
