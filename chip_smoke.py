@@ -81,6 +81,26 @@ Phases (each raises on failure, so the script exits non-zero):
    CLI's ``main`` in this process). A
    ``scenes`` line with these numbers and the card comes before the
    kernels line.
+13. The recipe (the fifth main path, run after phase 8, whose augment
+   launches are counted in run B): ``configs/`` composed with
+   ``experiment=flagship_b5_multistage``, cut to 4 epochs of 4 train and
+   2 val batches over 64 + 32 + 32 tiles of 512² (MultiStage unfreeze at
+   1, lr/3 at 2, SWA from 2). Run A, ``python -m deadtrees_tpu_torch
+   train`` in a process of its own, gets SIGTERM once epoch 0's
+   ``last.ckpt`` exists and must stop with ``preempted``, exit 0 and leave
+   ``last.ckpt`` at epoch 0 with its Adam state. Run B resumes from it in
+   this process (parameters, BN statistics, ``mu``, ``nu`` and ``count``
+   bit-equal to the file on load), runs epochs 1-3, SWA with its BN
+   recalibration, and the test after training on the best checkpoint;
+   kernel 4 launches once a train step and once a recalibration batch;
+   ``swa.ckpt`` and the best checkpoint serve through ``TorchInference``.
+   Run C, ``python -m deadtrees_tpu_torch eval`` on the best checkpoint
+   with ``tta=8`` and without, prints the whole ``test/*`` set over the
+   same pixel count. A ``recipe`` line with the epochs' times, the
+   checkpoint save as the loop sees it (asynchronous and synchronous),
+   the file size, SIGTERM to exit, the resume load, the recalibration,
+   ``test()``'s tiles/s with and without ``tta=8`` and the phase's wall
+   time comes before the kernels line.
 
 The last line is the device record; the line before it the card's name
 and power limit, and before that one JSON object describing the kernels
@@ -101,6 +121,7 @@ import io
 import json
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -165,6 +186,8 @@ SCENE_BS = 128
 SCENE_RAGGED = (1500, 2030)  # 3 x 4 of the 4 x 4 subtiles hold data
 SCENE_PX = 0.2
 SCENE_X0, SCENE_Y0 = 500000.0, 5400000.0
+RECIPE_EPOCHS = 4
+RECIPE_TEST = 32  # test tiles
 
 
 def log(msg: str) -> None:
@@ -1348,9 +1371,10 @@ def phase_edt() -> None:
 # ---------------------------------------------------------------------------
 
 
-def write_train_shards(root: Path) -> None:
-    """Two train shards of 32 and a val shard of 32 samples: 512² RGBN
-    TIFF tiles, masks of random rectangles of classes 1 and 2, lu layers."""
+def write_train_shards(root: Path, test: int = 0) -> None:
+    """Two train shards of 32 and a val shard of 32 samples (and ``test``
+    test samples): 512² RGBN TIFF tiles, masks of random rectangles of
+    classes 1 and 2, lu layers."""
     from PIL import Image
 
     from deadtrees_tpu_torch.data.shardwriter import ShardWriter
@@ -1361,7 +1385,9 @@ def write_train_shards(root: Path) -> None:
         return buf.getvalue()
 
     rng = np.random.default_rng(SEED + 9)
-    for split, n in (("train", 64), ("val", 32)):
+    for split, n in (("train", 64), ("val", 32), ("test", test)):
+        if not n:
+            continue
         with ShardWriter(str(root / split / "train-combo-%06d.tar"), maxcount=32) as w:
             for i in range(n):
                 mask = np.zeros((IMG, IMG), np.uint8)
@@ -1878,6 +1904,290 @@ def phase_scenes(path: Path, hp, plain, plain_bs128_ms: float, card: str) -> dic
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+
+
+def recipe_overrides(data: Path, run_dir: Path) -> list:
+    """The recipe of record (``configs/`` with
+    ``experiment=flagship_b5_multistage``: b5, bs 16, bf16, lr 3e-4) cut to
+    4 epochs of 4 train and 2 val batches, its stages brought forward."""
+    return ["experiment=flagship_b5_multistage", f"data_dir={data}", f"run_dir={run_dir}",
+            f"logger.save_dir={run_dir / 'metrics'}", f"trainer.max_epochs={RECIPE_EPOCHS}",
+            f"trainer.limit_train_batches={TRAIN_STEPS}",
+            f"trainer.limit_val_batches={VAL_STEPS}", "callbacks.multistage.unfreeze_epoch=1",
+            "callbacks.multistage.lr_reduce_epoch=2", "callbacks.swa.swa_epoch_start=2",
+            "print_config=false"]
+
+
+def _cli(args, out: Path) -> subprocess.Popen:
+    """``python -m deadtrees_tpu_torch`` in a process of its own, its
+    output to ``out``.out / .err."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "deadtrees_tpu_torch", *args], cwd=REPO,
+        stdout=open(out.with_suffix(".out"), "w"), stderr=open(out.with_suffix(".err"), "w"))
+
+
+def _cli_result(out: Path) -> dict:
+    """The dict the CLI printed last (``nan`` read as None)."""
+    import ast
+
+    line = out.with_suffix(".out").read_text().strip().splitlines()[-1]
+    return ast.literal_eval(re.sub(r"\bnan\b", "None", line))
+
+
+def _cm_pixels(out: Path) -> int:
+    m = re.search(r"CM - DEFAULT - PIXEL:\s*(\[\[.*?\]\])", out.with_suffix(".err").read_text(),
+                  re.S)
+    if m is None:
+        raise AssertionError(f"no confusion matrix in {out.with_suffix('.err')}")
+    return sum(int(v) for v in re.findall(r"\d+", m.group(1)))
+
+
+def _stop_split(out: Path, t_sig: float) -> dict:
+    """Seconds from SIGTERM (wall clock ``t_sig``) to the child's log lines
+    of the trap, the stop at a step boundary and the checkpoints on disk."""
+    import datetime
+
+    marks = {"handler": "SIGTERM: stopping", "step boundary": "Stop requested",
+             "checkpoints on disk": "Preempted: the checkpoints"}
+    split = {}
+    for line in out.with_suffix(".err").read_text().splitlines():
+        for name, text in marks.items():
+            if text in line and name not in split:
+                stamp = datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+                split[name] = stamp.timestamp() - t_sig
+    return split
+
+
+def _equal_trees(got, want, where: str) -> int:
+    """Bit-equality of two nested dicts of arrays; returns the leaf count."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{where}: keys {sorted(got)[:4]} != {sorted(want)[:4]}")
+    n = 0
+    for k in want:
+        if isinstance(want[k], dict):
+            n += _equal_trees(got[k], want[k], f"{where}/{k}")
+        elif not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+            raise AssertionError(f"{where}/{k} differs from the file")
+        else:
+            n += 1
+    return n
+
+
+def phase_recipe(card: str) -> dict:
+    """The recipe through the CLI and ``train()``: preemption, a resume
+    bit-equal on load, MultiStage, SWA, the test after training, eval with
+    and without TTA. Returns the numbers for the recipe line."""
+    import csv
+    import importlib.util
+
+    import torch
+
+    from deadtrees_tpu_torch.config import compose
+    from deadtrees_tpu_torch.core import load_checkpoint, save_checkpoint, snapshot
+    from deadtrees_tpu_torch.core.checkpoint import _build_payload, _encode
+    from deadtrees_tpu_torch.core.msgpack_codec import unpackb
+    from deadtrees_tpu_torch.infer import TorchInference
+    from deadtrees_tpu_torch.models import variables_from_state_dict
+    from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from deadtrees_tpu_torch.train import Trainer, optimizer_state_dict, train
+
+    t_phase = time.perf_counter()
+    root = REPO / "build" / "chip_smoke" / "recipe"
+    if root.exists():
+        shutil.rmtree(root)
+    data = root / "data"
+    t0 = time.perf_counter()
+    write_train_shards(data, test=RECIPE_TEST)
+    out = {"shards_s": time.perf_counter() - t0}
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"recipe shards: 64 train, 32 val, {RECIPE_TEST} test tiles of {IMG}² written in "
+        f"{out['shards_s']:.2f} s; matplotlib {'present' if has_mpl else 'absent'}")
+
+    # run A: the CLI, preempted by SIGTERM once epoch 0 is checkpointed
+    run_a = root / "runA"
+    run_a.mkdir(parents=True)
+    proc = _cli(["train", *recipe_overrides(data, run_a)], root / "runA")
+    t_start = time.perf_counter()
+    try:
+        while True:
+            found = sorted(run_a.glob("*/*/checkpoints/last.ckpt"))
+            if found or proc.poll() is not None or time.perf_counter() - t_start > 600:
+                break
+            time.sleep(0.05)
+        if not found:
+            raise RuntimeError(f"run A wrote no last.ckpt (exit {proc.poll()}):\n"
+                               + (root / "runA.err").read_text()[-4000:])
+        t_epoch0 = time.perf_counter() - t_start
+        t_sig_wall = time.time()
+        proc.send_signal(signal.SIGTERM)
+        t_sig = time.perf_counter()
+        rc = proc.wait(timeout=300)
+        out["sigterm_to_exit_s"] = time.perf_counter() - t_sig
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    last_a = found[0]
+    res_a = _cli_result(root / "runA")
+    ckpt_a = load_checkpoint(last_a)
+    if rc != 0 or res_a.get("preempted") != 1.0 or int(ckpt_a["epoch"]) != 0 \
+            or "opt_state" not in ckpt_a:
+        raise AssertionError(f"run A: exit {rc}, result {res_a}, last.ckpt epoch "
+                             f"{int(ckpt_a['epoch'])}, opt_state {'opt_state' in ckpt_a}")
+    out.update(run_a_to_epoch0_ckpt_s=t_epoch0, ckpt_bytes=last_a.stat().st_size,
+               run_a_step=int(ckpt_a["step"]),
+               sigterm_split_s=_stop_split(root / "runA", t_sig_wall))
+    log(f"run A (CLI): epoch 0's last.ckpt after {t_epoch0:.2f} s (process start, build and "
+        f"the first epoch); SIGTERM to exit {out['sigterm_to_exit_s']:.3f} s, exit 0, "
+        f"preempted; last.ckpt epoch 0, step {out['run_a_step']}, {out['ckpt_bytes']} bytes "
+        "with the Adam state; after SIGTERM, by the child's log clock: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in out["sigterm_split_s"].items()))
+
+    # run B: resume in this process, bit-equal on load, then the rest
+    class CheckedTrainer(Trainer):
+        def resume(self, path):
+            start = super().resume(path)
+            ckpt = load_checkpoint(path)
+            held = variables_from_state_dict(self.model.state_dict())
+            n = _equal_trees(held["params"], ckpt["params"], "params")
+            n += _equal_trees(held["batch_stats"], ckpt["batch_stats"], "batch_stats")
+            opt = snapshot(optimizer_state_dict(self.state.optimizer, self.model))
+            n += _equal_trees(opt, unpackb(ckpt["opt_state"]), "opt_state")
+            self.checked_leaves = n
+            return start
+
+    run_b = root / "runB"
+    cfg = compose(REPO / "configs", overrides=recipe_overrides(data, run_b)
+                  + [f"trainer.resume_from_checkpoint={last_a}"])
+    trainer = CheckedTrainer(cfg, work_dir=run_b)
+    reset_launch_counts()
+    result = train(cfg, work_dir=run_b, trainer=trainer)
+    counts = dict(LAUNCHES)
+    steps = trainer.state.step - out["run_a_step"]
+    lr = cfg["model"]["training"]["learning_rate"]
+    stage = trainer.state.optimizer.schedule(0) / lr
+    with open(run_b / "metrics" / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    epochs = [int(float(r["epoch"])) for r in rows]
+    if epochs != list(range(1, RECIPE_EPOCHS)) or steps != (RECIPE_EPOCHS - 1) * TRAIN_STEPS:
+        raise AssertionError(f"run B: epochs {epochs}, {steps} steps")
+    if counts[AUGMENT] != steps + trainer.swa_bn_batches:
+        raise AssertionError(f"augment launches {counts[AUGMENT]} for {steps} train steps and "
+                             f"{trainer.swa_bn_batches} recalibration batches")
+    if any(v for k, v in counts.items() if k != AUGMENT):
+        raise AssertionError(f"the recipe launched another kernel: {counts}")
+    if abs(stage - 1 / 3) > 1e-9 or trainer.state.optimizer.count != 2 * TRAIN_STEPS:
+        raise AssertionError(f"the stage at the end: lr x {stage}, count "
+                             f"{trainer.state.optimizer.count}")
+    tests = {k: v for k, v in result.items() if k.startswith("test/")}
+    if "swa_ckpt" not in result or len(tests) != 6 or not all(
+            v is not None and np.isfinite(v) for v in tests.values()):
+        raise AssertionError(f"run B result {result}")
+    figures = sorted(p.name for p in (run_b / "figures").glob("*.png"))
+    if has_mpl and len(figures) != 2 * (RECIPE_EPOCHS - 1):
+        raise AssertionError(f"figures {figures}")
+    if not has_mpl and figures:
+        raise AssertionError(f"figures without matplotlib: {figures}")
+    out.update(
+        launches=counts[AUGMENT], train_steps=steps, swa_bn_batches=trainer.swa_bn_batches,
+        resume_checked_leaves=trainer.checked_leaves,
+        resume_load_s=trainer.timings["resume_s"][0],
+        epochs=[{"epoch": e, "wall_s": w, "steps_per_s": float(r["steps_per_sec"]),
+                 "train_loss": float(r["train/total_loss"]), "val_dice": float(r["val/dice"])}
+                for e, w, r in zip(epochs, trainer.timings["epoch_s"], rows)],
+        save_loop_s=trainer.timings["save_s"], swa_recal_s=trainer.timings["swa_recal_s"][0],
+        figures=len(figures), matplotlib=has_mpl, test=tests,
+        test_tiles_per_s=RECIPE_TEST / trainer.timings["test_s"][0])
+    log(f"run B (train() in this process, resumed at epoch 1 from run A): {out['resume_checked_leaves']} "
+        f"leaves (parameters, BN statistics, mu, nu, counts) bit-equal to the file on load "
+        f"in {out['resume_load_s']:.3f} s; {steps} train steps + {trainer.swa_bn_batches} SWA "
+        f"recalibration batches = {counts[AUGMENT]} augment launches; lr x {stage:.6f} and "
+        f"count {trainer.state.optimizer.count} at the end (fresh Adam at epoch 2)")
+    for e in out["epochs"]:
+        log(f"  epoch {e['epoch']}: {e['wall_s']:.3f} s wall (train, val, save), "
+            f"{e['steps_per_s']:.3f} steps/s, train loss {e['train_loss']:.4f}, "
+            f"val dice {e['val_dice']:.4f}")
+    log(f"  checkpoint saves as the loop sees them (asynchronous): "
+        f"{', '.join(f'{t:.3f}' for t in out['save_loop_s'])} s; SWA BN recalibration "
+        f"({trainer.swa_bn_batches} batches) {out['swa_recal_s']:.3f} s; test after training "
+        f"{out['test_tiles_per_s']:.2f} tiles/s; figures: "
+        + (f"{len(figures)} written" if has_mpl else "skipped, matplotlib is absent"))
+
+    # one save of each kind, timed from the loop's side
+    kw = trainer._ckpt_kwargs(RECIPE_EPOCHS - 1)
+    t0 = time.perf_counter()
+    trainer._ckpt_writer.save(root / "async.ckpt", **kw)
+    out["save_async_s"] = time.perf_counter() - t0
+    trainer._ckpt_writer.wait()
+    out["save_async_total_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_checkpoint(root / "sync.ckpt", **trainer._ckpt_kwargs(RECIPE_EPOCHS - 1))
+    out["save_sync_s"] = time.perf_counter() - t0
+    if (root / "sync.ckpt").stat().st_size != (root / "async.ckpt").stat().st_size:
+        raise AssertionError("the asynchronous and synchronous files differ in size")
+    # the writer thread's encode: buffers viewing the snapshot, against one
+    # joined bytes object (the least a whole-file encode copies, GIL held)
+    payload = _build_payload(**kw)
+    t0 = time.perf_counter()
+    chunks = _encode(payload)
+    out["encode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    joined = b"".join(chunks)
+    out["encode_join_s"] = time.perf_counter() - t0
+    del kw, payload, chunks, joined
+    tta = trainer.test(result["best_ckpt"], tta=8)
+    out["test_tta8_tiles_per_s"] = RECIPE_TEST / trainer.timings["test_s"][-1]
+    out["tta8_rate_ratio"] = out["test_tta8_tiles_per_s"] / out["test_tiles_per_s"]
+    log(f"  one save of the final state ({(root / 'sync.ckpt').stat().st_size} bytes): the loop "
+        f"waits {out['save_async_s']:.3f} s asynchronously ({out['save_async_total_s']:.3f} s "
+        f"to the file on disk), {out['save_sync_s']:.3f} s synchronously; the encode "
+        f"{out['encode_s']:.3f} s as buffers, {out['encode_join_s']:.3f} s more to join them "
+        f"into one bytes object; test() with tta=8 "
+        f"{out['test_tta8_tiles_per_s']:.2f} tiles/s, {out['tta8_rate_ratio']:.3f} of the "
+        f"plain rate; test/dice {tests['test/dice']:.4f} plain, {tta['test/dice']:.4f} tta=8")
+
+    for path in (result["swa_ckpt"], result["best_ckpt"]):
+        engine = TorchInference(path)
+        tile = np.random.default_rng(SEED + 40).integers(0, 256, (4, IMG, IMG, 4), dtype=np.uint8)
+        classes = engine.run(tile)
+        if classes.shape != (4, IMG, IMG) or classes.dtype != np.uint8 or classes.max() > 2:
+            raise AssertionError(f"{path} served {classes.shape} {classes.dtype}")
+        del engine
+    log(f"swa.ckpt and {Path(result['best_ckpt']).name} served by TorchInference at bs 4")
+    best = result["best_ckpt"]
+    del trainer
+    torch.cuda.empty_cache()  # the eval processes need the card's memory
+
+    # run C: the eval CLI with and without tta=8
+    evals = {}
+    for name, extra in (("tta8", ["tta=8"]), ("plain", [])):
+        t0 = time.perf_counter()
+        proc = _cli(["eval", f"bestmodel={best}", *extra, *recipe_overrides(data, root / "runC")],
+                    root / f"eval_{name}")
+        rc = proc.wait(timeout=600)
+        if rc != 0:
+            raise RuntimeError(f"eval {name} failed ({rc}):\n"
+                               + (root / f"eval_{name}.err").read_text()[-4000:])
+        evals[name] = {"s": time.perf_counter() - t0, "metrics": _cli_result(root / f"eval_{name}"),
+                       "cm_pixels": _cm_pixels(root / f"eval_{name}")}
+    want_px = RECIPE_TEST * IMG * IMG
+    for name, ev in evals.items():
+        if sorted(ev["metrics"]) != sorted(tests) or ev["cm_pixels"] != want_px:
+            raise AssertionError(f"eval {name}: {sorted(ev['metrics'])}, {ev['cm_pixels']} px")
+    out["eval_cli"] = evals
+    log(f"run C (eval CLI): tta=8 {evals['tta8']['s']:.2f} s, plain {evals['plain']['s']:.2f} s "
+        f"(each a process of its own); both print the {len(tests)} test/* metrics over "
+        f"{want_px} pixels; test/dice tta=8 {evals['tta8']['metrics']['test/dice']:.4f}, plain "
+        f"{evals['plain']['metrics']['test/dice']:.4f} (run B's {tests['test/dice']:.4f})")
+    shutil.rmtree(data)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13: {out['phase_s']:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1919,6 +2229,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     augment_row = phase_augment(card)
     augment_row["launches"] = phase_train(card)
+    torch.cuda.empty_cache()
+    recipe = phase_recipe(card)
 
     kernels = []
     for name in REPLACES:
@@ -1953,6 +2265,7 @@ def main() -> int:
                                                    "library_host_ms")})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print("scenes " + json.dumps(dict(scenes, card=card)))
+    print("recipe " + json.dumps(dict(recipe, card=card)))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

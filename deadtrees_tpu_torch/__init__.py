@@ -5,18 +5,27 @@ and public names, in PyTorch idiom (NCHW ``nn.Module``s with the reference
 smp state-dict layout, explicit devices and generators). Its entry points
 run on a CUDA device unless the caller asks for ``device="cpu"``.
 
-Subpackages ported so far (the serving and training paths of the model
-of record):
+Subpackages ported so far (the serving, scene and training paths of the
+model of record):
     data    — dataset constants, augmentation, tar shards, the data module
     models  — EfficientUnet++ on the EfficientNet-b0..b7 encoders
-    ops     — the fused, BN-folded decoder InvertedResidual (two CUDA
-              kernels) and the fused colour jitter + normalize (one CUDA
-              kernel), built at first CUDA use
+    ops     — the fused, BN-folded decoder InvertedResidual, its NHWC pair,
+              the depthwise conv and the fused colour jitter + normalize
+              (hand-written CUDA kernels, built at first CUDA use)
     losses  — one-hot helpers, the exact EDT, the loss suite, metrics
-    train   — compound loss, optimizer, train/eval steps, ``Trainer``
-    core    — checkpoint files in the JAX package's ``DTPU1`` format
-    infer   — ``TorchInference`` and 2-bit class-map packing
+    train   — compound loss, optimizer (its state in the JAX package's
+              bytes), train/eval steps, ``Trainer`` and ``train()``: the
+              recipe with SWA, resume, preemption and test after training
+    core    — checkpoint files in the JAX package's ``DTPU1`` format, the
+              asynchronous writer
+    infer   — ``TorchInference``, TTA, quantization, scenes, the ensemble
+    geo     — retile and mosaic
     serve   — the REST segmentation service
+    config  — Hydra-style YAML composition of the repo's ``configs/``
+    visualization — sample grids and confusion-matrix figures
+    utils   — env, logging, timer
+
+``python -m deadtrees_tpu_torch version|train|eval`` is the CLI.
 
 Importing the package needs neither a GPU nor a CUDA compiler.
 """

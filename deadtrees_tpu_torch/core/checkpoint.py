@@ -11,36 +11,100 @@ and the reverse (first-party codec: ``core/msgpack_codec.py``).
   and carries the weights across (``models/convert.py``);
 - a ``.dtpu`` pointer is written next to every checkpoint and verified on
   load when present, so a corrupted file fails loudly;
-- ``opt_state`` (the flax bytes of an optax state) is read and written as
-  opaque bytes;
+- ``opt_state`` is the flax bytes of an optax state; it is written from
+  bytes or from the state-dict tree of ``train.optim.optimizer_state_dict``
+  (encoded to the same bytes) and read back as bytes;
+- every save first takes a :func:`snapshot`: a host copy of the trees
+  that shares no storage with the live tensors, so a write that finishes
+  later never sees a later step;
+- :class:`AsyncCheckpointWriter` takes the snapshot on the calling thread
+  and encodes and writes on one worker thread;
 - :class:`BestCheckpointKeeper` keeps the best checkpoint on a monitored
   metric and always the last one (a copy of the JAX package's keeper).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import logging
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from deadtrees_tpu_torch.core.artifacts import maybe_verify, pointer_path, write_pointer
-from deadtrees_tpu_torch.core.msgpack_codec import packb, unpackb
+from deadtrees_tpu_torch.core.msgpack_codec import PackedBin, pack_chunks, unpackb
 
 log = logging.getLogger(__name__)
 
 _MAGIC = b"DTPU1\n"
 
 
-def _to_numpy_tree(tree: Any) -> Any:
+def snapshot(tree: Any) -> Any:
+    """A host copy of ``tree`` (nested dicts of tensors, numpy arrays and
+    scalars) with numpy leaves that share no storage with the input, on
+    every device: ``.cpu()`` copies a CUDA tensor but returns a CPU tensor
+    itself, and ``.numpy()`` is then a view of the live parameter."""
     if isinstance(tree, dict):
-        return {k: _to_numpy_tree(v) for k, v in tree.items()}
+        return {k: snapshot(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        t = tree.detach()
+        return (t.clone() if t.device.type == "cpu" else t.cpu()).numpy()
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
     return np.asarray(tree)
+
+
+def _build_payload(
+    *,
+    params: Any,
+    batch_stats: Any,
+    hparams: Dict[str, Any],
+    opt_state: Union[bytes, Dict[str, Any], None] = None,
+    step: int = 0,
+    epoch: int = 0,
+    extra: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """The checkpoint's map with every tree snapshotted; ``opt_state`` stays
+    a tree until :func:`_encode`."""
+    payload = {
+        "hparams": json.dumps(hparams).encode(),
+        "step": np.int64(step),
+        "epoch": np.int64(epoch),
+        "params": snapshot(params),
+        "batch_stats": snapshot(batch_stats),
+    }
+    if opt_state is not None:
+        payload["opt_state"] = (
+            snapshot(opt_state) if isinstance(opt_state, dict) else bytes(opt_state)
+        )
+    if extra:
+        payload["extra"] = json.dumps(extra).encode()
+    return payload
+
+
+def _encode(payload: Dict[str, Any]) -> List:
+    """The file's msgpack map as buffers that view the snapshot's arrays
+    (``msgpack_codec.pack_chunks``): nothing of the size of the file is
+    copied under the GIL, which the train loop's thread needs."""
+    if isinstance(payload.get("opt_state"), dict):
+        payload = dict(payload, opt_state=PackedBin(pack_chunks(payload["opt_state"])))
+    return pack_chunks(payload)
+
+
+def _write_blob(path: Union[str, Path], chunks: List) -> None:
+    """Write atomically, then the ``.dtpu`` pointer."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "wb") as f:
+        f.write(_MAGIC)
+        for chunk in chunks:
+            f.write(chunk)
+    tmp.replace(path)  # atomic
+    write_pointer(path)
 
 
 def save_checkpoint(
@@ -49,7 +113,7 @@ def save_checkpoint(
     params: Any,
     batch_stats: Any,
     hparams: Dict[str, Any],
-    opt_state: Optional[bytes] = None,
+    opt_state: Union[bytes, Dict[str, Any], None] = None,
     step: int = 0,
     epoch: int = 0,
     extra: Optional[Dict[str, Any]] = None,
@@ -58,26 +122,78 @@ def save_checkpoint(
 
     ``params`` / ``batch_stats`` are flax-layout trees (numpy arrays or
     tensors as leaves): ``models.variables_from_state_dict`` makes them
-    from a port model's ``state_dict()``."""
-    payload = {
-        "hparams": json.dumps(hparams).encode(),
-        "step": np.int64(step),
-        "epoch": np.int64(epoch),
-        "params": _to_numpy_tree(params),
-        "batch_stats": _to_numpy_tree(batch_stats),
-    }
-    if opt_state is not None:
-        payload["opt_state"] = bytes(opt_state)
-    if extra:
-        payload["extra"] = json.dumps(extra).encode()
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(path.suffix + ".tmp")
-    with open(tmp, "wb") as f:
-        f.write(_MAGIC)
-        f.write(packb(payload))
-    tmp.replace(path)  # atomic
-    write_pointer(path)
+    from a port model's ``state_dict()``. ``opt_state``: flax bytes of an
+    optax state, or the tree of ``train.optim.optimizer_state_dict``."""
+    _write_blob(path, _encode(_build_payload(
+        params=params, batch_stats=batch_stats, hparams=hparams, opt_state=opt_state,
+        step=step, epoch=epoch, extra=extra,
+    )))
+
+
+class AsyncCheckpointWriter:
+    """Checkpoint encoding and file writes off the calling thread.
+
+    ``save()`` takes the :func:`snapshot` on the calling thread (the one
+    device-to-host copy that cannot be deferred: the next step updates the
+    parameters in place) and hands the msgpack encode and the atomic write
+    to ONE worker thread, so writes apply in submission order. Call
+    :meth:`wait` before reading the files back; it raises the first failure
+    again.
+    """
+
+    def __init__(self):
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ckpt-writer"
+        )
+        self._pending: List[concurrent.futures.Future] = []
+
+    def save(self, path: Union[str, Path], **kwargs) -> None:
+        """Asynchronous :func:`save_checkpoint` (the same keywords)."""
+        self.save_many([path], **kwargs)
+
+    def save_many(self, paths: Sequence[Union[str, Path]], **kwargs) -> None:
+        """One snapshot written to several paths (last.ckpt and a new
+        best): the copy and the encode happen once."""
+        payload = _build_payload(**kwargs)
+        self._pending.append(self._pool.submit(self._write_all, list(paths), payload))
+
+    @staticmethod
+    def _write_all(paths, payload) -> None:
+        chunks = _encode(payload)
+        for p in paths:
+            _write_blob(p, chunks)
+
+    def delete(self, path: Union[str, Path]) -> None:
+        """Remove a file and its pointer ON THE WORKER, ordered after every
+        write queued before it: an unlink from the calling thread could
+        run before the file's own queued write, which would then land a
+        stale checkpoint."""
+
+        def unlink(p=Path(path)):
+            p.unlink(missing_ok=True)
+            pointer_path(p).unlink(missing_ok=True)
+
+        self._pending.append(self._pool.submit(unlink))
+
+    def wait(self) -> None:
+        """Block until every queued write is on disk; raise the first
+        failure again (later ones are logged)."""
+        pending, self._pending = self._pending, []
+        first: Optional[BaseException] = None
+        for fut in pending:
+            try:
+                fut.result()
+            except BaseException as e:  # noqa: BLE001 - raised again below
+                if first is None:
+                    first = e
+                else:
+                    log.error(f"additional checkpoint write failed: {e!r}")
+        if first is not None:
+            raise first
+
+    def close(self) -> None:
+        self.wait()
+        self._pool.shutdown(wait=True)
 
 
 def load_checkpoint(path: Union[str, Path]) -> Dict[str, Any]:

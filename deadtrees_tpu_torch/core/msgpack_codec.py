@@ -12,7 +12,12 @@ writes the same bytes without the ``msgpack`` package:
 - flax's chunked form of arrays larger than 1 GiB, on read.
 
 Maps are written with sorted keys, so a tree writes the same bytes as
-flax writes for it.
+flax writes for it. :func:`pack_chunks` gives those bytes as a list of
+buffers in which every array's data is a view, not a copy, so a large
+checkpoint is written to a file without being assembled in memory (and
+without holding the GIL for the copies); a :class:`PackedBin` inside the
+tree is a nested msgpack object written as one bin (flax's bytes of an
+optax state inside a checkpoint).
 """
 
 from __future__ import annotations
@@ -72,8 +77,7 @@ _ARR = ((None, "", 0), (0xDC, ">H", 1 << 16), (0xDD, ">I", 1 << 32))
 _MAP = ((None, "", 0), (0xDE, ">H", 1 << 16), (0xDF, ">I", 1 << 32))
 
 
-def _pack_ext(code: int, data: bytes, out: List[bytes]) -> None:
-    n = len(data)
+def _pack_ext_header(code: int, n: int, out: List[bytes]) -> None:
     fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
     if n in fixed:
         out.append(bytes([fixed[n], code]))
@@ -83,13 +87,31 @@ def _pack_ext(code: int, data: bytes, out: List[bytes]) -> None:
         out.append(struct.pack(">BHb", 0xC8, n, code))
     else:
         out.append(struct.pack(">BIb", 0xC9, n, code))
-    out.append(data)
 
 
-def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+def _pack_ndarray(code: int, arr: np.ndarray, out: List) -> None:
+    """An array as the ext ``code`` holding ``(shape, dtype name, C-order
+    bytes)``; the bytes are a view of the (contiguous) array."""
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes cannot be serialized")
-    return packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    if not arr.flags.c_contiguous:  # (ascontiguousarray would make a 0-d array 1-d)
+        arr = np.ascontiguousarray(arr)
+    head: List = []
+    _pack_len(3, 0x90, 15, _ARR, head)
+    _pack(list(arr.shape), head)
+    _pack(arr.dtype.name, head)
+    _pack_len(arr.nbytes, None, -1, _BIN, head)
+    _pack_ext_header(code, sum(len(c) for c in head) + arr.nbytes, out)
+    out.extend(head)
+    out.append(memoryview(arr.reshape(-1).view(np.uint8)))
+
+
+class PackedBin:
+    """Buffers of :func:`pack_chunks`, packed as one bin of their bytes."""
+
+    def __init__(self, chunks: List):
+        self.chunks = chunks
+        self.nbytes = sum(len(c) for c in chunks)
 
 
 def _pack(obj: Any, out: List[bytes]) -> None:
@@ -98,9 +120,12 @@ def _pack(obj: Any, out: List[bytes]) -> None:
     elif obj is True or obj is False:
         out.append(b"\xc3" if obj else b"\xc2")
     elif isinstance(obj, np.ndarray):
-        _pack_ext(_EXT_NDARRAY, _ndarray_to_bytes(obj), out)
+        _pack_ndarray(_EXT_NDARRAY, obj, out)
     elif isinstance(obj, np.generic):
-        _pack_ext(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(obj)), out)
+        _pack_ndarray(_EXT_NPSCALAR, np.asarray(obj), out)
+    elif isinstance(obj, PackedBin):
+        _pack_len(obj.nbytes, None, -1, _BIN, out)
+        out.extend(obj.chunks)
     elif isinstance(obj, int):
         _pack_int(obj, out)
     elif isinstance(obj, float):
@@ -127,11 +152,17 @@ def _pack(obj: Any, out: List[bytes]) -> None:
         raise TypeError(f"cannot serialize {type(obj).__name__}")
 
 
+def pack_chunks(obj: Any) -> List:
+    """:func:`packb`'s bytes as a list of buffers (bytes and memoryviews of
+    the arrays in ``obj``, which must not change until they are written)."""
+    out: List = []
+    _pack(obj, out)
+    return out
+
+
 def packb(obj: Any) -> bytes:
     """Serialize ``obj`` (the types of the module docstring)."""
-    out: List[bytes] = []
-    _pack(obj, out)
-    return b"".join(out)
+    return b"".join(pack_chunks(obj))
 
 
 # ---------------------------------------------------------------------------

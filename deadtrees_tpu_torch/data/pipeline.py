@@ -14,10 +14,12 @@ Counterpart of ``deadtrees_tpu.data.pipeline`` for one process:
   ``train_batches`` takes a fresh stream seed from its generator every
   epoch.
 
+- ``val_batches`` and ``test_batches`` stream their shards once, unshuffled,
+  in eval mode (normalize only).
+
 Not ported yet, each raising ``NotImplementedError``: ``pattern_extra``
 mixing, ``process_count > 1``, the eval slicing of several processes,
-remote and cached shards, the native reader, and test batches (with
-``Trainer.test()``).
+remote and cached shards, and the native reader.
 """
 
 from __future__ import annotations
@@ -232,5 +234,15 @@ class DeadtreesDataModule:
             raise RuntimeError("call setup() first")
         return self._stream(
             self.valid_shards, shuffle=0, train=False, loop=False,
+            generator=None, stream_seed=self.cfg.seed,
+        )
+
+    def test_batches(self) -> Iterator[Dict]:
+        if not self._setup_done:
+            raise RuntimeError("call setup() first")
+        if not self.test_shards:
+            return iter(())
+        return self._stream(
+            self.test_shards, shuffle=0, train=False, loop=False,
             generator=None, stream_seed=self.cfg.seed,
         )

@@ -1,6 +1,7 @@
 from deadtrees_tpu_torch.models.convert import (
     state_dict_from_inverted_residual,
     state_dict_from_variables,
+    tensor_variables_from_state_dict,
     variables_from_state_dict,
 )
 from deadtrees_tpu_torch.models.encoders import ENCODERS, get_encoder
@@ -22,5 +23,6 @@ __all__ = [
     "init_model",
     "state_dict_from_inverted_residual",
     "state_dict_from_variables",
+    "tensor_variables_from_state_dict",
     "variables_from_state_dict",
 ]

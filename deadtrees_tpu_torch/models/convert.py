@@ -149,12 +149,13 @@ def _state_dict_from_table(table, params: Dict, stats: Dict) -> Dict[str, torch.
             if "bias" in p:
                 sd[f"{tkey}.bias"] = t(p["bias"])
         else:
-            s = _get(stats, fpath)
             sd[f"{tkey}.weight"] = t(p["scale"])
             sd[f"{tkey}.bias"] = t(p["bias"])
-            sd[f"{tkey}.running_mean"] = t(s["mean"])
-            sd[f"{tkey}.running_var"] = t(s["var"])
-            sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+            if stats is not None:
+                s = _get(stats, fpath)
+                sd[f"{tkey}.running_mean"] = t(s["mean"])
+                sd[f"{tkey}.running_var"] = t(s["var"])
+                sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
 
 
@@ -162,11 +163,13 @@ def state_dict_from_variables(
     variables: Dict[str, Dict], *, encoder_name: Optional[str] = None
 ) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) → the port's
-    ``state_dict`` (CPU tensors, the leaves' dtype).
+    ``state_dict`` (CPU tensors, the leaves' dtype). Without
+    ``"batch_stats"`` only the parameters are mapped (a tree of Adam
+    moments has the parameters' layout).
 
     ``encoder_name`` fixes the encoder depth; without it the depth is
     read from the number of MBConv blocks in the tree."""
-    params, stats = variables["params"], variables["batch_stats"]
+    params, stats = variables["params"], variables.get("batch_stats")
     n_blocks = sum(1 for k in params["encoder"] if k.startswith("MBConv_"))
     grid = params["decoder"][_GRID]
     cells = [
@@ -189,15 +192,7 @@ def state_dict_from_inverted_residual(
     return {k[1:]: v for k, v in sd.items()}  # drop the empty prefix's "."
 
 
-def variables_from_state_dict(
-    state_dict: Dict[str, Any], *, encoder_name: Optional[str] = None
-) -> Dict[str, Dict]:
-    """The port's ``state_dict`` → the JAX ``{"params", "batch_stats"}``
-    tree with float32 numpy leaves (what the JAX checkpoint format holds)."""
-    sd = {
-        k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
-        for k, v in state_dict.items()
-    }
+def _flax_variables(sd: Dict[str, Any], encoder_name, to_hwio, f32) -> Dict[str, Dict]:
     n_blocks = len({
         ".".join(k.split(".")[:4]) for k in sd if k.startswith("encoder.blocks.")
     })
@@ -209,13 +204,9 @@ def variables_from_state_dict(
     ]
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
-
-    def f32(a) -> np.ndarray:
-        return np.ascontiguousarray(a, dtype=np.float32)
-
     for fpath, tkey, kind in _model_table(_repeats_for(n_blocks, encoder_name), cells):
         if kind == "conv":
-            leaf = {"kernel": f32(_oihw_to_hwio(sd[f"{tkey}.weight"]))}
+            leaf = {"kernel": to_hwio(sd[f"{tkey}.weight"])}
             if f"{tkey}.bias" in sd:
                 leaf["bias"] = f32(sd[f"{tkey}.bias"])
             _put(params, fpath, leaf)
@@ -223,8 +214,42 @@ def variables_from_state_dict(
             _put(params, fpath, {
                 "scale": f32(sd[f"{tkey}.weight"]), "bias": f32(sd[f"{tkey}.bias"]),
             })
-            _put(stats, fpath, {
-                "mean": f32(sd[f"{tkey}.running_mean"]),
-                "var": f32(sd[f"{tkey}.running_var"]),
-            })
+            if f"{tkey}.running_mean" in sd:
+                _put(stats, fpath, {
+                    "mean": f32(sd[f"{tkey}.running_mean"]),
+                    "var": f32(sd[f"{tkey}.running_var"]),
+                })
     return {"params": params, "batch_stats": stats}
+
+
+def variables_from_state_dict(
+    state_dict: Dict[str, Any], *, encoder_name: Optional[str] = None
+) -> Dict[str, Dict]:
+    """The port's ``state_dict`` → the JAX ``{"params", "batch_stats"}``
+    tree with float32 numpy leaves (what the JAX checkpoint format holds).
+    A dict of parameters alone gives empty ``"batch_stats"``."""
+    sd = {
+        k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+        for k, v in state_dict.items()
+    }
+
+    def f32(a) -> np.ndarray:
+        return np.ascontiguousarray(a, dtype=np.float32)
+
+    return _flax_variables(sd, encoder_name, lambda w: f32(_oihw_to_hwio(w)), f32)
+
+
+def tensor_variables_from_state_dict(
+    state_dict: Dict[str, torch.Tensor], *, encoder_name: Optional[str] = None
+) -> Dict[str, Dict]:
+    """:func:`variables_from_state_dict` with float32 tensor leaves on the
+    tensors' own device: conv kernels are permuted to HWIO and made
+    contiguous, every other leaf is the float32 tensor. A leaf may share
+    the module's storage (a float32 bias, a kernel whose permutation is
+    already contiguous): whoever keeps the tree past the next step must
+    copy it (``core.checkpoint`` snapshots do)."""
+
+    def to_hwio(w: torch.Tensor) -> torch.Tensor:
+        return w.detach().permute(2, 3, 1, 0).float().contiguous()
+
+    return _flax_variables(state_dict, encoder_name, to_hwio, lambda t: t.detach().float())

@@ -6,7 +6,11 @@ from deadtrees_tpu_torch.train.optim import (
     cosine_annealing_schedule,
     encoder_grad_mask,
     global_norm,
+    load_optimizer_state_dict,
     make_optimizer,
+    optimizer_from_bytes,
+    optimizer_state_dict,
+    optimizer_to_bytes,
 )
 from deadtrees_tpu_torch.train.steps import (
     TrainState,
@@ -14,7 +18,7 @@ from deadtrees_tpu_torch.train.steps import (
     make_predict_step,
     make_train_step,
 )
-from deadtrees_tpu_torch.train.trainer import Trainer
+from deadtrees_tpu_torch.train.trainer import Trainer, train
 
 __all__ = [
     "CompoundLoss",
@@ -28,8 +32,13 @@ __all__ = [
     "cosine_annealing_schedule",
     "encoder_grad_mask",
     "global_norm",
+    "load_optimizer_state_dict",
     "make_eval_step",
     "make_optimizer",
     "make_predict_step",
     "make_train_step",
+    "optimizer_from_bytes",
+    "optimizer_state_dict",
+    "optimizer_to_bytes",
+    "train",
 ]

@@ -125,18 +125,31 @@ def make_eval_step(model: nn.Module, loss: CompoundLoss, *, num_classes: int, tt
     """Returns ``eval_step(state, batch, epoch) -> metrics``: the loss
     parts, the Fscores and the unnormalized confusion-matrix counts
     (overall, and over the forest pixels when the batch has 'lu'), for the
-    eval loop to sum."""
+    eval loop to sum.
+
+    ``tta`` (0, 4 or 8; any other value raises ``ValueError``): the
+    probabilities are the mean over the dihedral views of
+    ``infer/tta.py``, and the loss parts that read raw scores get
+    ``log(clamp(probs, 1e-7, 1))``, which keeps the argmax and the order."""
+    tta_fn = None
     if tta:
-        raise NotImplementedError(
-            f"tta={tta} in the eval step is not ported yet (ROADMAP.md, slice A queue)"
-        )
+        from deadtrees_tpu_torch.infer.tta import make_tta_fn
+
+        def logits_nhwc(x: torch.Tensor) -> torch.Tensor:
+            return model(x.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
+
+        tta_fn = make_tta_fn(logits_nhwc, views=tta)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], epoch: int):
         model.eval()
         mask = batch["mask"]
-        logits = model(batch["image"])
-        probs = torch.softmax(logits, dim=1)
+        if tta_fn is None:
+            logits = model(batch["image"])
+            probs = torch.softmax(logits, dim=1)
+        else:
+            probs = tta_fn(batch["image"].permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            logits = torch.log(torch.clamp(probs, 1e-7, 1.0))
         y = class2one_hot(mask, num_classes)
         _, parts = loss(probs, y, logits=logits, distmap=batch.get("distmap"), epoch=epoch)
         idx = mask.reshape(-1).long() * num_classes + probs.argmax(1).reshape(-1)

@@ -43,7 +43,9 @@ def test_importing_every_module_loads_no_jax():
     assert "deadtrees_tpu_torch.ops.fused_mbconv" in modules
     assert "deadtrees_tpu_torch.serve.server" in modules
     for name in ("infer.blocks", "infer.geotiff", "infer.tiler", "infer.sliding",
-                 "infer.engine", "infer.scene", "geo", "geo.mosaic", "geo.retile"):
+                 "infer.engine", "infer.scene", "geo", "geo.mosaic", "geo.retile",
+                 "config", "config.loader", "utils.env", "utils.logging", "visualization",
+                 "visualization.helper", "train.entry", "__main__"):
         assert f"deadtrees_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -236,7 +236,7 @@ def test_eval_step_matches_jax(setup):
     assert classes.shape == (2, N, N) and probs.shape == (2, K, N, N)
     assert make_predict_step(model, return_probs=False)(
         _port_batch(batch)["image"]).dtype == torch.uint8
-    with pytest.raises(NotImplementedError, match="tta"):
+    with pytest.raises(ValueError, match="views must be 4 or 8"):
         make_eval_step(model, None, num_classes=K, tta=2)
 
 

@@ -5,7 +5,8 @@ narrow decoder channels over two tiny shards (train and val, 32² RGBN
 TIFF tiles written with the port's ``ShardWriter``), with the MultiStage
 freeze in the first epoch. Its best checkpoint must load in
 ``deadtrees_tpu.core.load_model`` and give the port's float32 logits to
-1e-4. What the port does not have yet raises ``NotImplementedError``.
+1e-4. What the port does not have yet raises ``NotImplementedError``; the
+rest of the recipe is in tests/test_torch_recipe.py.
 """
 
 import io
@@ -171,12 +172,8 @@ def test_two_class_collapse(dataset):
 
 
 def test_unported_features_raise(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="SWA"):
-        Trainer(_config(dataset, callbacks={"swa": {"swa_epoch_start": 1}}), tmp_path, "cpu")
     with pytest.raises(NotImplementedError, match="devices"):
         Trainer(_config(dataset, trainer={"devices": 4}), tmp_path, "cpu")
-    with pytest.raises(NotImplementedError, match="resume"):
-        Trainer(_config(dataset, trainer={"resume_from_checkpoint": "x.ckpt"}), tmp_path, "cpu")
     with pytest.raises(NotImplementedError, match="remote shard"):
         Trainer(_config(dataset, data_dir="pipe:cat shard-{000000..000003}.tar"),
                 tmp_path, "cpu").fit()
@@ -186,9 +183,6 @@ def test_unported_features_raise(dataset, tmp_path):
     with pytest.raises(NotImplementedError, match="pattern_extra"):
         DeadtreesDataModule(DataConfig(data_dir=str(dataset / "train"),
                                        pattern_extra=["extra-*.tar"], device="cpu"))
-    trainer = Trainer(_config(dataset), tmp_path, "cpu")
-    with pytest.raises(NotImplementedError, match="test"):
-        trainer.test(tta=2)
 
 
 def test_trainer_runs_on_cuda_unless_asked(dataset, tmp_path, monkeypatch):
