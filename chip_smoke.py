@@ -101,6 +101,25 @@ Phases (each raises on failure, so the script exits non-zero):
    the file size, SIGTERM to exit, the resume load, the recalibration,
    ``test()``'s tiles/s with and without ``tta=8`` and the phase's wall
    time comes before the kernels line.
+14. The training data path (run after phase 13; phases 8 and 13 read
+   their shards through the native reader too). Decode alone on the
+   card's host: 8 shards of 64 tiles of 512² (RGBN, mask, lu),
+   uncompressed by PIL and re-encoded as deflate with predictor 2, read by
+   ``make_sample_stream`` through PIL (over 4 of the shards) and natively
+   on 4 threads (the recipe's ``num_workers``) and on every core,
+   ``decode_batch`` of one shard's 64 RGBN tiles, the native stream equal
+   to the PIL stream. The train loop's data rate: ``train_batches`` of
+   the recipe's datamodule (bs 16: decode, pinned upload, kernel 4, EDT)
+   with the reader on and off in turns, and a fit of 8 steps with each,
+   beside phase 8's step alone; which part sets the epoch's pace. The multi-dataset config
+   (``train datamodule=deadtrees_multi_datasets``, b5 at 512², bs 32 =
+   15 + 2 + 15, cut to bs 16 = 7 + 1 + 7 only if bs 32 runs out of
+   memory) for 3 steps and a val batch: every batch's parts in order,
+   kernel 4 once a train batch, the peak memory. ``pipe:cat`` shards with
+   ``cache_dir`` for 2 epochs equal to the local shards' batches, one
+   shard over http from a localhost server. No shard falls back to PIL
+   in phases 8, 13 and 14. A ``data`` line with these numbers comes
+   before the kernels line.
 
 The last line is the device record; the line before it the card's name
 and power limit, and before that one JSON object describing the kernels
@@ -117,6 +136,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import http.server
 import io
 import json
 import re
@@ -1371,18 +1391,20 @@ def phase_edt() -> None:
 # ---------------------------------------------------------------------------
 
 
+def _tiff(arr: np.ndarray, mode: str) -> bytes:
+    """An uncompressed TIFF by PIL, the shard writer's format."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr, mode=mode).save(buf, format="TIFF")
+    return buf.getvalue()
+
+
 def write_train_shards(root: Path, test: int = 0) -> None:
     """Two train shards of 32 and a val shard of 32 samples (and ``test``
     test samples): 512² RGBN TIFF tiles, masks of random rectangles of
     classes 1 and 2, lu layers."""
-    from PIL import Image
-
     from deadtrees_tpu_torch.data.shardwriter import ShardWriter
-
-    def tiff(arr, mode):
-        buf = io.BytesIO()
-        Image.fromarray(arr, mode=mode).save(buf, format="TIFF")
-        return buf.getvalue()
 
     rng = np.random.default_rng(SEED + 9)
     for split, n in (("train", 64), ("val", 32), ("test", test)):
@@ -1396,9 +1418,9 @@ def write_train_shards(root: Path, test: int = 0) -> None:
                         side = IMG // 5
                         mask[y:y + h % side + IMG // 32, x:x + ww % side + IMG // 32] = cls
                 img = rng.integers(0, 256, (IMG, IMG, 4), dtype=np.uint8)
-                w.write({"__key__": f"{split}_{i:04d}", "rgbn.tif": tiff(img, "RGBA"),
-                         "mask.tif": tiff(mask, "L"),
-                         "lu.tif": tiff((rng.random((IMG, IMG)) > 0.3).astype(np.uint8), "L"),
+                w.write({"__key__": f"{split}_{i:04d}", "rgbn.tif": _tiff(img, "RGBA"),
+                         "mask.tif": _tiff(mask, "L"),
+                         "lu.tif": _tiff((rng.random((IMG, IMG)) > 0.3).astype(np.uint8), "L"),
                          "txt": f"{float((mask > 0).mean() * 100):.2f}"})
     (root / "test").mkdir(exist_ok=True)
 
@@ -1507,9 +1529,10 @@ def profile_train_step(trainer, host_batch, card: str) -> None:
         f"{1 - busy / wall:.1%}; ms by group: {parts}")
 
 
-def phase_train(card: str) -> int:
+def phase_train(card: str) -> dict:
     """Fit the flagship, then the checks and timings of the training path.
-    Returns the augment kernel's launches during the fit."""
+    Returns the augment kernel's launches during the fit, the step time and
+    the EDT time of one batch."""
     import csv
 
     import torch
@@ -1608,7 +1631,7 @@ def phase_train(card: str) -> int:
         "Adam state unchanged, step ticked")
 
     profile_train_step(trainer, _one_host_batch(dm), card)
-    return counts[AUGMENT]
+    return {"launches": counts[AUGMENT], "step_ms": step_ms, "edt_ms": edt_ms}
 
 
 def _one_host_batch(dm) -> dict:
@@ -2188,6 +2211,411 @@ def phase_recipe(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14
+# ---------------------------------------------------------------------------
+
+DECODE_SHARDS = 8
+DECODE_SAMPLES = 64  # a shard
+DECODE_THREADS = 4  # the recipe's num_workers (configs/datamodule/deadtrees_combo_*.yaml)
+DATA_BATCHES = 12
+DATA_FIT_STEPS = 8
+MULTI_STEPS = 3
+STRIP_ROWS = 16
+
+
+def _tiff_deflate_pred2(arr: np.ndarray) -> bytes:
+    """A TIFF of ``arr`` (H, W[, C]) uint8 in strips of ``STRIP_ROWS`` rows,
+    deflate (zlib level 6) after the horizontal predictor 2, GDAL's default
+    encoding of orthophotos; 4 bands carry unassociated alpha, as PIL's RGBA."""
+    import struct
+    import zlib
+
+    a = arr if arr.ndim == 3 else arr[..., None]
+    h, w, c = a.shape
+    diff = a.astype(np.int16)
+    diff[:, 1:] -= a[:, :-1]
+    diff = diff.astype(np.uint8)
+    strips = [zlib.compress(diff[y:y + STRIP_ROWS].tobytes(), 6) for y in range(0, h, STRIP_ROWS)]
+    n = len(strips)
+    tags = [(256, 3, 1, w), (257, 3, 1, h), (258, 3, c, 8), (259, 3, 1, 8),
+            (262, 3, 1, 2 if c > 1 else 1), (273, 4, n, 0), (277, 3, 1, c),
+            (278, 3, 1, STRIP_ROWS), (279, 4, n, 0), (317, 3, 1, 2)]
+    if c == 4:
+        tags.append((338, 3, 1, 2))
+    bits_at = 8 + 2 + 12 * len(tags) + 4
+    offs_at = bits_at + 2 * c
+    cnts_at = offs_at + 4 * n
+    pos, offsets = cnts_at + 4 * n, []
+    for strip in strips:
+        offsets.append(pos)
+        pos += len(strip)
+    ifd = struct.pack("<H", len(tags))
+    for tag, typ, count, value in tags:
+        value = {258: value if c == 1 else bits_at, 273: offs_at, 279: cnts_at}.get(tag, value)
+        ifd += struct.pack("<HHII", tag, typ, count, value)
+    return (struct.pack("<2sHI", b"II", 42, 8) + ifd + struct.pack("<I", 0)
+            + struct.pack(f"<{c}H", *[8] * c) + struct.pack(f"<{n}I", *offsets)
+            + struct.pack(f"<{n}I", *map(len, strips)) + b"".join(strips))
+
+
+def _decode_sample(i: int) -> tuple:
+    """Sample ``i`` of the decode set: an RGBN tile of 8-pixel blocks plus
+    4 bits of noise (deflate with the predictor compresses it about as it
+    does an orthophoto), a mask of class rectangles, an lu layer."""
+    rng = np.random.default_rng([SEED, 14, i])
+    base = rng.integers(0, 240, (IMG // 8, IMG // 8, 4), dtype=np.uint8)
+    img = np.repeat(np.repeat(base, 8, 0), 8, 1) + rng.integers(0, 16, (IMG, IMG, 4), np.uint8)
+    mask = np.zeros((IMG, IMG), np.uint8)
+    for cls in (1, 2):
+        for y, x, h, w in rng.integers(0, IMG * 3 // 4, (3, 4)):
+            mask[y:y + h % (IMG // 5) + IMG // 32, x:x + w % (IMG // 5) + IMG // 32] = cls
+    lu = (rng.random((IMG, IMG)) > 0.3).astype(np.uint8)
+    return img, mask, lu
+
+
+def write_decode_shards(root: Path) -> None:
+    """``DECODE_SHARDS`` shards of ``DECODE_SAMPLES`` tiles of 512² (RGBN,
+    mask, lu), twice: uncompressed by PIL under ``plain/train`` and deflate
+    with the predictor under ``deflate/train``. Sample keys are
+    ``s{shard}_{index}``."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deadtrees_tpu_torch.data.shardwriter import ShardWriter
+
+    def encode(i):
+        img, mask, lu = _decode_sample(i)
+        key = f"s{i // DECODE_SAMPLES}_{i % DECODE_SAMPLES:04d}"
+        txt = f"{float((mask > 0).mean() * 100):.2f}"
+        plain = {"__key__": key, "rgbn.tif": _tiff(img, "RGBA"), "mask.tif": _tiff(mask, "L"),
+                 "lu.tif": _tiff(lu, "L"), "txt": txt}
+        deflate = {"__key__": key, "rgbn.tif": _tiff_deflate_pred2(img),
+                   "mask.tif": _tiff_deflate_pred2(mask), "lu.tif": _tiff_deflate_pred2(lu),
+                   "txt": txt}
+        return plain, deflate
+
+    writers = [ShardWriter(str(root / kind / "train" / "train-combo-%06d.tar"),
+                           maxcount=DECODE_SAMPLES, write_pointers=False)
+               for kind in ("plain", "deflate")]
+    with ThreadPoolExecutor(os.cpu_count()) as pool, writers[0], writers[1]:
+        for samples in pool.map(encode, range(DECODE_SHARDS * DECODE_SAMPLES)):
+            for w, sample in zip(writers, samples):
+                w.write(sample)
+    for kind in ("plain", "deflate"):
+        (root / kind / "val").mkdir()
+        (root / kind / "test").mkdir()
+        first = root / kind / "train" / "train-combo-000000.tar"
+        (root / kind / "val" / first.name).symlink_to(first.resolve())
+
+
+def _equal_samples(got, want, where: str) -> int:
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{where}: {len(got)} samples against {len(want)}")
+    for g, w in zip(got, want):
+        if g["stats"] != w["stats"] or sorted(g) != sorted(w) or not all(
+                np.array_equal(g[k], w[k]) for k in ("image", "mask", "lu")):
+            raise AssertionError(f"{where}: sample {w['stats']['file']} differs")
+    return len(got)
+
+
+def _stream_rate(shards, **kw) -> float:
+    """Samples/s of one pass of ``make_sample_stream`` over ``shards``."""
+    from deadtrees_tpu_torch.data.tar import make_sample_stream
+
+    t0 = time.perf_counter()
+    n = sum(1 for _ in make_sample_stream(shards, **kw))
+    return n / (time.perf_counter() - t0)
+
+
+def _data_module(splits: list, use_native: bool = True, **kw):
+    """The recipe's datamodule (bs 16, 4 decode threads) over the
+    [train, val, test] shard sources ``splits``."""
+    from deadtrees_tpu_torch.data.pipeline import DataConfig, DeadtreesDataModule
+
+    dm = DeadtreesDataModule(DataConfig(
+        data_dir=[str(s) for s in splits], batch_size=TRAIN_BS, num_workers=DECODE_THREADS,
+        use_native=use_native, seed=SEED, **kw))
+    dm.setup()
+    return dm
+
+
+def _train_batch_rate(dm) -> float:
+    """Batches/s of ``train_batches`` (decode, pinned upload, kernel 4, EDT)
+    after its first batch, synchronized at the end."""
+    import torch
+
+    with contextlib.closing(dm.train_batches(torch.Generator().manual_seed(SEED))) as batches:
+        next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DATA_BATCHES):
+            next(batches)
+        torch.cuda.synchronize()
+        return DATA_BATCHES / (time.perf_counter() - t0)
+
+
+def _short_fit(data: Path, work: Path, use_native: bool) -> dict:
+    """``Trainer.fit()`` of the flagship recipe, one epoch of
+    ``DATA_FIT_STEPS`` steps (unfrozen, as phase 8's step alone) and one
+    val batch; its steps/s as the metrics file records it."""
+    import csv
+
+    from deadtrees_tpu_torch.train import Trainer
+
+    cfg = train_config(data)
+    cfg["datamodule"].update(num_workers=DECODE_THREADS, use_native=use_native)
+    cfg["trainer"].update(max_epochs=1, limit_train_batches=DATA_FIT_STEPS,
+                          limit_val_batches=1)
+    cfg["callbacks"]["multistage"] = {"unfreeze_epoch": 0, "lr_reduce_epoch": None}
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, work_dir=work)
+    trainer.fit()
+    wall = time.perf_counter() - t0
+    with open(work / "metrics" / "metrics.csv") as f:
+        (row,) = list(csv.DictReader(f))
+    if trainer.state.step != DATA_FIT_STEPS:
+        raise AssertionError(f"the fit took {trainer.state.step} steps")
+    return {"steps_per_s": float(row["steps_per_sec"]), "wall_s": wall}
+
+
+def _multi_dataset_run(data: Path, run: Path, cut: list) -> dict:
+    """``train datamodule=deadtrees_multi_datasets`` composed as the CLI
+    composes it, 1 epoch of ``MULTI_STEPS`` steps and one val batch, the
+    files of every batch recorded."""
+    import torch
+
+    from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from deadtrees_tpu_torch.train import Trainer, train
+    from deadtrees_tpu_torch.train.entry import _compose
+
+    overrides = ["datamodule=deadtrees_multi_datasets", f"data_dir={data}", f"run_dir={run}",
+                 f"logger.save_dir={run / 'metrics'}", "trainer.max_epochs=1",
+                 f"trainer.limit_train_batches={MULTI_STEPS}", "trainer.limit_val_batches=1",
+                 "test_after_training=false", "print_config=false", f"seed={SEED}", *cut]
+    cfg = _compose(overrides, REPO / "configs")
+    files = {"train": [], "val": []}
+
+    class RecordingTrainer(Trainer):
+        def _build(self):
+            super()._build()
+            for split in files:
+                batches = getattr(self.datamodule, f"{split}_batches")
+
+                def recorded(*a, _batches=batches, _split=split, **k):
+                    for b in _batches(*a, **k):
+                        files[_split].append(list(b["files"]))
+                        yield b
+
+                setattr(self.datamodule, f"{split}_batches", recorded)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = RecordingTrainer(cfg, work_dir=run)
+    train(cfg, work_dir=run, trainer=trainer)
+    return {"cfg": cfg["datamodule"], "files": files, "launches": LAUNCHES[AUGMENT],
+            "steps": trainer.state.step, "wall_s": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+class _QuietHandler(http.server.SimpleHTTPRequestHandler):
+    def log_message(self, *args) -> None:  # no line a request on stderr
+        pass
+
+
+def phase_data(card: str, train: dict) -> dict:
+    """The training data path: decode rates, the train loop's data rate with
+    the native reader on and off, the multi-dataset config, remote and
+    cached shards. ``train`` holds phase 8's step and EDT times."""
+    import functools
+    import os
+    import socketserver
+
+    import torch
+
+    from deadtrees_tpu_torch.data import native
+    from deadtrees_tpu_torch.data.tar import (
+        NATIVE_FALLBACKS,
+        iter_tar_samples,
+        make_sample_stream,
+    )
+
+    t_phase = time.perf_counter()
+    root = REPO / "build" / "chip_smoke" / "data"
+    if root.exists():
+        shutil.rmtree(root)
+    cores = os.cpu_count()
+    out = {"cores": cores, "decode_threads": DECODE_THREADS}
+    t0 = time.perf_counter()
+    write_decode_shards(root)
+    log(f"decode shards: 2 x {DECODE_SHARDS} x {DECODE_SAMPLES} tiles of {IMG}² (RGBN, mask, lu; "
+        f"uncompressed and deflate + predictor 2) written in {time.perf_counter() - t0:.2f} s; "
+        f"{cores} cores on the card's host")
+
+    # 1. decode alone, on the card's host
+    for kind in ("plain", "deflate"):
+        shards = sorted(str(p) for p in (root / kind / "train").glob("*.tar"))
+        mb = sum(Path(s).stat().st_size for s in shards) / 1e6
+        half = shards[:len(shards) // 2]  # PIL's rate over half: the slow reader, the same rate
+        rates = {"native_4": _stream_rate(shards, n_threads=DECODE_THREADS),
+                 "pil": _stream_rate(half, prefer_native=False),
+                 f"native_{cores}": _stream_rate(shards, n_threads=cores)}
+        out[f"decode_{kind}"] = dict(rates, shard_mb=mb / len(shards))
+        log(f"decode ({kind}, {mb / len(shards):.1f} MB a shard), samples/s of "
+            f"make_sample_stream over {len(shards) * DECODE_SAMPLES} samples (PIL over "
+            f"{len(half) * DECODE_SAMPLES}): " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+        extents = [g["rgbn.tif"] for g in native.index_shard_samples(shards[0]).values()]
+        for threads in (DECODE_THREADS, cores):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                native.decode_batch(shards[0], extents, (IMG, IMG, 4), n_threads=threads)
+                times.append(time.perf_counter() - t0)
+            out[f"decode_batch_{kind}_{threads}_ms"] = statistics.median(times) * 1e3
+        log(f"  native.decode_batch of one shard's {len(extents)} RGBN tiles of {IMG}² (read + "
+            f"decode), median of 5: {out[f'decode_batch_{kind}_{DECODE_THREADS}_ms']:.2f} ms on "
+            f"{DECODE_THREADS} threads, {out[f'decode_batch_{kind}_{cores}_ms']:.2f} ms on {cores}")
+    one = [str(root / "plain" / "train" / "train-combo-000000.tar")]
+    pil = list(make_sample_stream(one, prefer_native=False))
+    n = _equal_samples(list(make_sample_stream(one)), pil, "native against PIL")
+    n += _equal_samples(list(make_sample_stream([one[0].replace("plain", "deflate")])), pil,
+                        "deflate decoded natively against PIL's uncompressed")
+    log(f"native stream equal to the PIL stream, pixels and stats: {n} samples of 2 shards")
+
+    # 2. the data path as the train loop sees it
+    plain = root / "plain"
+    rates = {}
+    for use_native in (True, False, False, True):
+        key = "native" if use_native else "pil"
+        dm = _data_module([plain / "train", plain / "val", plain / "test"], use_native)
+        rates.setdefault(key, []).append(_train_batch_rate(dm))
+    out["train_batches_per_s"] = rates
+    # phases 8 and 13 warmed the process up at these shapes (a first fit runs at
+    # about half the rate: tools/time_data_path.py --fits)
+    fits = {key: _short_fit(plain, root / f"fit_{key}", key == "native")
+            for key in ("native", "pil")}
+    out["fit"] = fits
+    fit_rate = {k: v["steps_per_s"] for k, v in fits.items()}
+    step_rate = 1e3 / train["step_ms"]
+    edt_rate = 1e3 / train["edt_ms"]
+    decode_rate = out["decode_plain"]["native_4"] / TRAIN_BS
+    log(f"train_batches (bs {TRAIN_BS}: decode, pinned upload, kernel 4, EDT), batches/s in turns "
+        f"native, PIL, PIL, native: {rates['native'][0]:.2f}, {rates['pil'][0]:.2f}, "
+        f"{rates['pil'][1]:.2f}, {rates['native'][1]:.2f}")
+    turns = ", ".join(f"{k} {v['steps_per_s']:.3f} ({v['wall_s']:.1f} s wall)"
+                      for k, v in fits.items())
+    log(f"fits of {DATA_FIT_STEPS} steps, steps/s of the metrics file: {turns}; beside: "
+        f"the step alone {step_rate:.3f} steps/s (phase 8), the EDT alone {edt_rate:.2f} "
+        f"batches/s, the native decode alone {decode_rate:.2f} batches/s on {DECODE_THREADS} "
+        "threads")
+    paces = {"decode": decode_rate, "EDT": edt_rate, "step": step_rate}
+    pace = min(paces, key=paces.get)
+    out["pace"] = pace
+    # the card runs each batch's EDT before its step: together they cap the fit
+    device_rate = 1e3 / (train["step_ms"] + train["edt_ms"])
+    log(f"the epoch's pace is set by the {pace} ({paces[pace]:.3f} a second); with the EDT "
+        f"before it on the card, {device_rate:.3f} steps/s at most; the fit reaches "
+        f"{fit_rate['native'] / device_rate:.1%} of that natively, "
+        f"{fit_rate['pil'] / device_rate:.1%} through PIL")
+
+    # 3. the multi-dataset config at full width
+    multi = root / "multi"
+    multi.mkdir()
+    names = ["train-balanced"] * 4 + ["train-negativesamples"] * 2 + ["train-randomsamples"] * 2
+    for i, name in enumerate(names):
+        src = plain / "train" / f"train-combo-{i:06d}.tar"
+        (multi / f"{name}-{i % 4 if i < 4 else i % 2:06d}.tar").symlink_to(src)
+    cut, run = [], None
+    try:
+        run = _multi_dataset_run(multi, root / "multi_run", cut)
+    except torch.cuda.OutOfMemoryError as e:
+        oom = str(e).splitlines()[0]
+    if run is None:  # outside the handler: its traceback held the first run's tensors
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = ["datamodule.batch_size=16", "datamodule.batch_size_extra=[1,7]"]
+        log(f"multi-dataset at bs 32 did not fit ({oom}); cut to {cut}, the nearest split "
+            "with the same shares")
+        run = _multi_dataset_run(multi, root / "multi_run_cut", cut)
+    bs, extra = run["cfg"]["batch_size"], run["cfg"]["batch_size_extra"]
+    main_bs = bs - sum(extra)
+    shard_of = {"train": ("s0", "s1", "s4", "s6"), "val": ("s2", "s5", "s7")}
+    for split, batches in run["files"].items():
+        groups = shard_of[split]
+        want = [groups[:2] if split == "train" else groups[:1]] * main_bs + \
+            [groups[-2:-1]] * extra[0] + [groups[-1:]] * extra[1]
+        for files in batches:
+            if len(files) != bs or not all(f.split("_")[0] in w for f, w in zip(files, want)):
+                raise AssertionError(f"a {split} batch is not {main_bs} + {extra}: {files}")
+    if run["steps"] != MULTI_STEPS or len(run["files"]["train"]) != MULTI_STEPS \
+            or run["launches"] != MULTI_STEPS or not run["files"]["val"]:
+        raise AssertionError(f"multi-dataset: {run['steps']} steps, kernel 4 launched "
+                             f"{run['launches']} times, {len(run['files']['val'])} val batches")
+    out["multi"] = {"batch_size": bs, "batch_size_extra": extra, "cut": cut,
+                    "peak_gib": run["peak_gib"], "wall_s": run["wall_s"],
+                    "launches": run["launches"]}
+    log(f"multi-dataset (train datamodule=deadtrees_multi_datasets, b5, bf16, {IMG}²): bs {bs} = "
+        f"{main_bs} + {' + '.join(map(str, extra))} in every train and val batch, "
+        f"{MULTI_STEPS} steps + 1 val batch in {run['wall_s']:.1f} s, kernel 4 launched "
+        f"{run['launches']} times, peak memory {run['peak_gib']:.2f} GiB"
+        + (f", cut: {cut}" if cut else ", no cut"))
+
+    # 4. remote and cached shards
+    local = root / "remote_local"
+    for split in ("train", "val", "test"):
+        (local / split).mkdir(parents=True)
+    for i in range(2):
+        (local / "train" / f"train-combo-{i:06d}.tar").symlink_to(
+            plain / "train" / f"train-combo-{i:06d}.tar")
+    spec = f"pipe:cat {plain}/train/train-combo-{{000000..000001}}.tar"
+    cache = root / "cache"
+    dms = {"local": _data_module([local / "train", local / "val", local / "test"],
+                                 distmap=False),
+           "cached": _data_module([spec, local / "val", local / "test"], distmap=False,
+                                  cache_dir=str(cache))}
+    gens = {k: torch.Generator().manual_seed(SEED + 14) for k in dms}
+    epoch_s = []
+    for epoch in range(2):
+        t0 = time.perf_counter()
+        got = list(dms["cached"].train_batches(gens["cached"]))
+        epoch_s.append(time.perf_counter() - t0)
+        if epoch == 0 and len(list(cache.iterdir())) != 2:
+            raise AssertionError(f"the cache holds {sorted(os.listdir(cache))}")
+        want = list(dms["local"].train_batches(gens["local"]))
+        if len(got) != len(want) or not got or any(
+                g["files"] != w["files"] or not torch.equal(g["image"], w["image"])
+                or not torch.equal(g["mask"], w["mask"]) for g, w in zip(got, want)):
+            raise AssertionError(f"epoch {epoch} of the cached pipe: shards differs from local")
+    handler = functools.partial(_QuietHandler, directory=str(plain / "train"))
+    with socketserver.TCPServer(("127.0.0.1", 0), handler) as httpd:
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        try:
+            url = f"http://127.0.0.1:{httpd.server_address[1]}/train-combo-000000.tar"
+            t0 = time.perf_counter()
+            over_http = list(iter_tar_samples(url))
+            http_s = time.perf_counter() - t0
+        finally:
+            httpd.shutdown()
+            server.join(10)
+    if over_http != list(iter_tar_samples(one[0])):
+        raise AssertionError("the shard read over http differs from the file")
+    out["remote"] = {"cached_epoch_s": epoch_s, "http_shard_s": http_s}
+    log(f"pipe: shards with cache_dir, 2 epochs of {len(got)} batches equal to the local shards' "
+        f"(files, images, masks): {epoch_s[0]:.2f} s (fetch into the cache) and {epoch_s[1]:.2f} s"
+        f"; one shard over http from a localhost server equal to the file in {http_s:.2f} s")
+
+    if NATIVE_FALLBACKS:
+        raise AssertionError(f"native decode fell back to PIL on {NATIVE_FALLBACKS}")
+    out["native_fallbacks"] = 0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14: {out['phase_s']:.1f} s on {card}; native fallbacks 0")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2201,6 +2629,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     t_start = time.perf_counter()
+    from deadtrees_tpu_torch.data.tar import NATIVE_FALLBACKS
+
+    NATIVE_FALLBACKS.clear()  # phases 8, 13 and 14 read their shards natively
 
     phase_device()
     card = card_line()
@@ -2228,9 +2659,12 @@ def main() -> int:
     del plain, model
     torch.cuda.empty_cache()
     augment_row = phase_augment(card)
-    augment_row["launches"] = phase_train(card)
+    train = phase_train(card)
+    augment_row["launches"] = train["launches"]
     torch.cuda.empty_cache()
     recipe = phase_recipe(card)
+    torch.cuda.empty_cache()
+    data = phase_data(card, train)
 
     kernels = []
     for name in REPLACES:
@@ -2266,6 +2700,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print("scenes " + json.dumps(dict(scenes, card=card)))
     print("recipe " + json.dumps(dict(recipe, card=card)))
+    print("data " + json.dumps(dict(data, card=card)))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

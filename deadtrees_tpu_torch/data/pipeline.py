@@ -2,24 +2,32 @@
 
 Counterpart of ``deadtrees_tpu.data.pipeline`` for one process:
 
-- a background producer thread streams and decodes tar samples
-  (``data/tar.py``) into uint8 numpy batches (``_stack_samples``, with the
-  2-class collapse), and copies them into pinned memory when the batches
+- background producer threads stream and decode tar samples
+  (``data/tar.py``; by default through the native C++ reader on
+  ``num_workers`` threads, ``data/native.py``) into uint8 batches
+  (``_stack_samples``, with the 2-class collapse), pinned when the batches
   go to a CUDA device;
+- ``pattern_extra`` datasets each get a producer of their own, looping
+  forever, seeded ``stream_seed + 1 + i``; every batch is the main part of
+  ``batch_size - sum(batch_size_extra)`` samples followed by
+  ``batch_size_extra[i]`` samples of extra ``i`` (the reference's
+  ``create_combined_batch``). Their shards split into train and val by the
+  main set's train fraction; evaluation sees the extra val shards, test
+  sees none;
 - ``_finish_batch`` uploads a batch (non-blocking from pinned memory), runs
   ``augment_batch`` on the device (the fused jitter + normalize kernel for
   every CUDA training batch) and then the boundary-loss distance maps
   (``batch_one_hot2dist``) from the augmented mask;
 - the epoch length is ``len(train_shards) * shard_size // batch_size``;
   ``train_batches`` takes a fresh stream seed from its generator every
-  epoch.
+  epoch; ``val_batches`` and ``test_batches`` stream their shards once,
+  unshuffled, in eval mode (normalize only);
+- shards may be local, ``pipe:`` commands or http(s) URLs; with
+  ``cache_dir`` a remote shard is copied there on first touch (``setup``
+  primes the cache with the probe shard) and later epochs read the copy.
 
-- ``val_batches`` and ``test_batches`` stream their shards once, unshuffled,
-  in eval mode (normalize only).
-
-Not ported yet, each raising ``NotImplementedError``: ``pattern_extra``
-mixing, ``process_count > 1``, the eval slicing of several processes,
-remote and cached shards, and the native reader.
+Several processes (``process_count > 1``: the disjoint train shards and
+the eval slicing) are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,26 +43,35 @@ import torch
 from deadtrees_tpu_torch.data.augment import augment_batch
 from deadtrees_tpu_torch.data.config import DATASET_CONFIG
 from deadtrees_tpu_torch.data.shards import discover_shards, split_shards
-from deadtrees_tpu_torch.data.tar import count_shard_samples, make_sample_stream
+from deadtrees_tpu_torch.data.tar import (
+    cache_shard,
+    count_shard_samples,
+    is_remote_shard,
+    make_sample_stream,
+)
 from deadtrees_tpu_torch.losses.functional import batch_one_hot2dist, class2one_hot
 
-_QUEUED = "(ROADMAP.md, slice A queue)"
+_QUEUED = "(ROADMAP.md, queue 1, item 8)"
 
 
 @dataclasses.dataclass
 class DataConfig:
-    data_dir: Union[str, List[str]]  # one dir (split by fractions) or [train, val, test]
+    data_dir: Union[str, List[str]]  # one dir or remote spec (split by fractions), or [train, val, test]
     pattern: str = "*.tar"
     batch_size: int = 32
     pattern_extra: Optional[List[str]] = None
+    batch_size_extra: Optional[List[int]] = None
     shuffle_buffer: int = 128
+    num_workers: int = 2  # native decode threads per stream
     prefetch: int = 2  # host batches queued ahead
     in_channels: int = 4
     classes: int = 3
     distmap: bool = True
     split_fractions: Sequence[float] = DATASET_CONFIG.fractions
     seed: int = 0
-    use_native: bool = False
+    use_native: bool = True  # the C++ tar/TIFF reader, built at first use
+    # local copies of REMOTE shards (pipe:/http): epoch 1 streams them into
+    # the cache, later epochs (and the native reader) read the copy
     cache_dir: Optional[str] = None
     process_count: Optional[int] = None
     device: Union[str, torch.device, None] = None  # CUDA unless asked otherwise
@@ -72,6 +89,19 @@ def _stack_samples(samples: List[Dict], *, in_channels: int, classes: int) -> Di
         batch["lu"] = np.stack([s["lu"] for s in samples]).astype(np.int32)
     batch["files"] = [s.get("stats", {}).get("file", "") for s in samples]
     return batch
+
+
+def _concat_parts(parts: List[Dict], pin: bool) -> Dict:
+    """One host batch from its parts [main, *extras], in that order, into
+    pinned memory when ``pin``; ``lu`` (when the main part has it) is zero
+    for a part without it."""
+    keys = ["image", "mask"] + (["lu"] if "lu" in parts[0] else [])
+    out: Dict = {"files": [f for p in parts for f in p["files"]]}
+    for k in keys:
+        ts = [p[k] if k in p else torch.zeros_like(p["mask"]) for p in parts]
+        shape = (sum(t.shape[0] for t in ts), *ts[0].shape[1:])
+        out[k] = torch.cat(ts, out=torch.empty(shape, dtype=ts[0].dtype, pin_memory=pin))
+    return out
 
 
 class _BatchProducer:
@@ -107,8 +137,9 @@ class _BatchProducer:
 
     def _run(self):
         buf: List[Dict] = []
+        samples = iter(self.stream)
         try:
-            for sample in self.stream:
+            for sample in samples:
                 if self._stop.is_set():
                     return
                 buf.append(sample)
@@ -120,6 +151,10 @@ class _BatchProducer:
         except BaseException as e:  # surfaced on the consumer thread
             self._put(e)
         finally:
+            # an abandoned shard stream kills its pipe: child here
+            close = getattr(samples, "close", None)
+            if close is not None:
+                close()
             self._put(None)
 
     def __iter__(self) -> Iterator[Dict]:
@@ -146,17 +181,11 @@ class DeadtreesDataModule:
     def __init__(self, config: DataConfig):
         from deadtrees_tpu_torch.infer.engine import resolve_device
 
-        if config.pattern_extra:
-            raise NotImplementedError(f"pattern_extra mixing is not ported yet {_QUEUED}")
         if (config.process_count or 1) > 1:
             raise NotImplementedError(
                 f"process_count={config.process_count}: several processes are not ported "
                 f"yet {_QUEUED}"
             )
-        if config.use_native:
-            raise NotImplementedError(f"the native C++ shard reader is not ported yet {_QUEUED}")
-        if config.cache_dir is not None:
-            raise NotImplementedError(f"cache_dir is not ported yet {_QUEUED}")
         self.cfg = config
         self.device = resolve_device(config.device)
         if isinstance(config.data_dir, (list, tuple)):
@@ -167,18 +196,68 @@ class DeadtreesDataModule:
         else:
             self.data_shards = [str(p) for p in discover_shards(config.data_dir, config.pattern)]
             self.layout = "single_directory"
+
+        self.data_shards_extra: List[List[str]] = []
+        if config.pattern_extra:
+            if self.layout == "train/val/test":
+                raise ValueError("Combining pattern_extra with train/val/test layout not allowed")
+            if not config.batch_size_extra or len(config.batch_size_extra) != len(
+                config.pattern_extra
+            ):
+                raise ValueError("Len of <pattern_extra> and <batch_size_extra> don't match")
+            if self.main_batch_size < 1:
+                raise ValueError(
+                    f"batch_size {config.batch_size} leaves no main samples beside "
+                    f"batch_size_extra {config.batch_size_extra}"
+                )
+            for p in config.pattern_extra:
+                if is_remote_shard(p):  # an extra dataset may be a remote spec of its own
+                    self.data_shards_extra.append([str(x) for x in discover_shards(p, "")])
+                elif is_remote_shard(config.data_dir):
+                    raise ValueError(
+                        "with a remote data_dir, pattern_extra entries must be full remote "
+                        "shard specs (pipe:/http), not glob patterns"
+                    )
+                else:
+                    self.data_shards_extra.append(
+                        [str(x) for x in discover_shards(config.data_dir, p)]
+                    )
         self._setup_done = False
 
     def setup(self) -> None:
+        cfg = self.cfg
         if self.layout == "single_directory":
-            train, valid, test = split_shards(self.data_shards, list(self.cfg.split_fractions))
+            train, valid, test = split_shards(self.data_shards, list(cfg.split_fractions))
         else:
             train, valid, test = self.data_shards
         if not train:
-            raise ValueError(f"no train shards matching {self.cfg.pattern!r}")
+            raise ValueError(f"no train shards matching {cfg.pattern!r}")
         self.train_shards, self.valid_shards, self.test_shards = train, valid, test
-        self.shard_size = count_shard_samples(train[0])
+
+        probe = train[0]
+        if cfg.cache_dir is not None:  # prime the cache: epoch 1 reuses the probe's copy
+            probe = cache_shard(probe, cfg.cache_dir)
+        self.shard_size = count_shard_samples(probe)
+
+        self.extra_train_shards: List[List[str]] = []
+        self.extra_valid_shards: List[List[str]] = []
+        train_frac = len(train) / (len(train) + len(valid))
+        for pattern, shards in zip(cfg.pattern_extra or [], self.data_shards_extra):
+            ex_train, ex_val, _ = split_shards(shards, [train_frac, 1 - train_frac])
+            if not ex_train or not ex_val:
+                # an extra stream loops forever: with no shards it would spin
+                raise ValueError(
+                    f"pattern_extra {pattern!r} matched {len(shards)} shard(s): its train "
+                    "and val parts each need one"
+                )
+            self.extra_train_shards.append(ex_train)
+            self.extra_valid_shards.append(ex_val)
         self._setup_done = True
+
+    @property
+    def main_batch_size(self) -> int:
+        """The main dataset's share of a batch: the batch size less the extras'."""
+        return self.cfg.batch_size - sum(self.cfg.batch_size_extra or [])
 
     @property
     def steps_per_epoch(self) -> int:
@@ -200,18 +279,37 @@ class DeadtreesDataModule:
         return out
 
     def _stream(
-        self, shards: List[str], *, shuffle: int, train: bool, loop: bool,
-        generator: Optional[torch.Generator], stream_seed: int,
+        self, shards: List[str], extra_shards: List[List[str]], *, shuffle: int, train: bool,
+        loop: bool, generator: Optional[torch.Generator], stream_seed: int,
     ) -> Iterator[Dict]:
-        producer = _BatchProducer(
-            make_sample_stream(shards, shuffle=shuffle, seed=stream_seed, loop=loop),
-            self.cfg.batch_size, self.cfg, pin=self.device.type == "cuda",
-        )
+        """Finished batches of ``shards``, each followed by its extra parts
+        from ``extra_shards`` (none: the main part is the whole batch)."""
+        cfg = self.cfg
+        pin = self.device.type == "cuda"
+
+        def producer(part_shards, batch_size, seed, part_loop, part_pin):
+            stream = make_sample_stream(
+                part_shards, shuffle=shuffle, seed=seed, loop=part_loop,
+                prefer_native=cfg.use_native, n_threads=cfg.num_workers,
+                cache_dir=cfg.cache_dir,
+            )
+            return _BatchProducer(stream, batch_size, cfg, pin=part_pin)
+
+        sizes = cfg.batch_size_extra or []
+        main = producer(shards, self.main_batch_size if extra_shards else cfg.batch_size,
+                        stream_seed, loop, pin and not extra_shards)
+        extras = [producer(s, bs, stream_seed + 1 + i, True, False)
+                  for i, (bs, s) in enumerate(zip(sizes, extra_shards))]
+        extra_iters = [iter(e) for e in extras]
         try:
-            for host_batch in producer:
+            for host_batch in main:
+                if extra_iters:
+                    parts = [host_batch] + [next(it) for it in extra_iters]
+                    host_batch = _concat_parts(parts, pin)
                 yield self._finish_batch(generator, host_batch, train=train)
         finally:
-            producer.stop()
+            for p in [main, *extras]:
+                p.stop()
 
     def train_batches(
         self, generator: Optional[torch.Generator] = None, *, loop: bool = False
@@ -225,15 +323,16 @@ class DeadtreesDataModule:
             generator = torch.Generator().manual_seed(self.cfg.seed)
         stream_seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
         return self._stream(
-            self.train_shards, shuffle=max(self.cfg.shuffle_buffer, self.shard_size),
-            train=True, loop=loop, generator=generator, stream_seed=stream_seed,
+            self.train_shards, self.extra_train_shards,
+            shuffle=max(self.cfg.shuffle_buffer, self.shard_size), train=True, loop=loop,
+            generator=generator, stream_seed=stream_seed,
         )
 
     def val_batches(self) -> Iterator[Dict]:
         if not self._setup_done:
             raise RuntimeError("call setup() first")
         return self._stream(
-            self.valid_shards, shuffle=0, train=False, loop=False,
+            self.valid_shards, self.extra_valid_shards, shuffle=0, train=False, loop=False,
             generator=None, stream_seed=self.cfg.seed,
         )
 
@@ -243,6 +342,6 @@ class DeadtreesDataModule:
         if not self.test_shards:
             return iter(())
         return self._stream(
-            self.test_shards, shuffle=0, train=False, loop=False,
+            self.test_shards, [], shuffle=0, train=False, loop=False,
             generator=None, stream_seed=self.cfg.seed,
         )

@@ -2,8 +2,8 @@
 
 A copy of ``deadtrees_tpu.data.shards`` (the reference's ``split_shards``,
 with its small-shard-count fixups and the two-fraction variant used for
-extra datasets). Only local shard directories are read here: remote
-shard specs (``pipe:`` / http) are not ported yet.
+extra datasets), and shard discovery in a local directory or from a
+remote spec (``pipe:`` / http, with a brace range).
 """
 
 from __future__ import annotations
@@ -60,12 +60,14 @@ def split_shards(
     return out
 
 
-def discover_shards(data_dir, pattern: str) -> List[Path]:
-    """Sorted shard paths matching ``pattern`` in a local directory."""
-    from deadtrees_tpu_torch.data.tar import is_remote_shard
+def discover_shards(data_dir, pattern: str) -> List:
+    """Sorted shard paths matching ``pattern`` in a local directory; or, when
+    ``data_dir`` is a remote shard spec (``pipe:CMD`` or an http(s) URL,
+    optionally with a WebDataset brace range such as
+    ``...-{000000..000123}.tar``), the expanded URL list, ``pattern``
+    ignored."""
+    from deadtrees_tpu_torch.data.tar import expand_shard_urls, is_remote_shard
 
-    if is_remote_shard(data_dir):
-        raise NotImplementedError(
-            f"remote shards ({data_dir!r}) are not ported yet (ROADMAP.md, slice A queue)"
-        )
+    if isinstance(data_dir, str) and is_remote_shard(data_dir):
+        return expand_shard_urls(data_dir)
     return sorted(Path(data_dir).glob(pattern))

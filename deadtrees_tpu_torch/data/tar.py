@@ -1,51 +1,154 @@
-"""Tar-shard sample streaming (the WebDataset-format reader), local files.
+"""Tar-shard sample streaming (the WebDataset-format reader).
 
 Counterpart of ``deadtrees_tpu.data.tar``: samples are groups of files in
 plain tar shards (``{key}.rgbn.tif``, ``{key}.mask.tif``, ``{key}.lu.tif``,
 ``{key}.txt``), as the reference's ``wds.ShardWriter`` writes them.
 
+- :func:`open_shard` opens a local file, a ``pipe:CMD`` source (the
+  command's stdout is the tar stream) or an http(s) URL;
+  :func:`expand_shard_urls` expands a ``{000000..000123}`` brace range and
+  :func:`cache_shard` copies a remote shard into a local cache once;
 - :func:`iter_tar_samples` streams key-grouped dicts of raw bytes from one
   shard (sample key = path up to the FIRST dot, suffix = the rest);
 - :func:`decode_sample` is the reference's ``sample_decoder``: an
   RGBA-converted 4-band image, L-converted masks, txt → {file, frac};
 - :class:`ShardSampleStream` iterates many shards with a buffered shuffle
-  and reshuffles the shard order each pass.
+  and reshuffles the shard order each pass; :class:`NativeShardSampleStream`
+  decodes each local shard whole through the C++ reader (``data/native.py``)
+  and yields the same samples in the same order.
 
-Remote shards (``pipe:`` / http) and the native C++ reader are not
-ported yet: asking for them raises ``NotImplementedError`` (the shard
-cache is refused by ``data/pipeline.py``'s config).
+The JAX package's deferred decode for the eval slicing of several
+processes (``raw=``, ``materialize_samples``) is not ported (ROADMAP.md,
+queue 1, item 8).
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import io
+import logging
+import os
 import random
+import re
+import shutil
+import subprocess
 import tarfile
+import threading
+import urllib.request
+from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-_QUEUED = "(ROADMAP.md, slice A queue)"
+log = logging.getLogger(__name__)
+
+_BRACE_RANGE = re.compile(r"\{(\d+)\.\.(\d+)\}")
+
+# Local shards the native stream could not decode and read through PIL
+# instead, one entry (and one warning) a shard read; clear it to count anew.
+NATIVE_FALLBACKS: List[str] = []
 
 
 def is_remote_shard(url) -> bool:
-    """True for shard sources that are streams, not local files."""
+    """True for shard sources that are streams, not local files: ``pipe:CMD``
+    and http(s) URLs."""
     return str(url).startswith(("pipe:", "http://", "https://"))
 
 
-def _local(path) -> str:
-    if is_remote_shard(path):
-        raise NotImplementedError(f"remote shard {path!r} is not ported yet {_QUEUED}")
-    return str(path)
+def expand_shard_urls(spec: str) -> List[str]:
+    """WebDataset-style brace expansion: ``shard-{000000..000123}.tar`` →
+    124 urls with the range's zero padding. A spec without a ``{a..b}``
+    range is a one-element list."""
+    m = _BRACE_RANGE.search(spec)
+    if m is None:
+        return [spec]
+    lo, hi = int(m.group(1)), int(m.group(2))
+    width = len(m.group(1))
+    head, tail = spec[: m.start()], spec[m.end():]
+    return [f"{head}{i:0{width}d}{tail}" for i in range(lo, hi + 1)]
+
+
+@contextlib.contextmanager
+def open_shard(url):
+    """Open a shard source as a tarfile: a local path (random access), or a
+    sequential stream (``mode="r|*"``) for ``pipe:`` and http(s) sources.
+
+    A ``pipe:`` command that exits non-zero after a cleanly read stream
+    raises: a truncated object-store read must not look like a short
+    shard. A stream abandoned early (a closed generator, an error) kills
+    the child instead of waiting for it."""
+    url = str(url)
+    if url.startswith("pipe:"):
+        proc = subprocess.Popen(url[len("pipe:"):], shell=True, stdout=subprocess.PIPE)
+        exhausted = False
+        try:
+            with tarfile.open(fileobj=proc.stdout, mode="r|*") as tf:
+                yield tf
+            exhausted = True
+        finally:
+            if exhausted:
+                proc.stdout.close()
+                rc = proc.wait()
+                if rc != 0:
+                    raise RuntimeError(f"shard pipe command failed (exit {rc}): {url}")
+            else:
+                proc.kill()
+                proc.wait()
+                proc.stdout.close()
+    elif url.startswith(("http://", "https://")):
+        with urllib.request.urlopen(url) as resp:
+            with tarfile.open(fileobj=resp, mode="r|*") as tf:
+                yield tf
+    else:
+        with tarfile.open(url, "r") as tf:
+            yield tf
+
+
+def cache_shard(url, cache_dir) -> str:
+    """Copy a remote shard (``pipe:`` / http) into ``cache_dir`` once and
+    return the local path; a local path passes through. Later epochs, and
+    the native reader, which needs a real file, then read the copy. The
+    download lands in a temporary of its process and thread and is renamed
+    into place, so streams that fetch at once at worst fetch twice and
+    never read a torn file. A pipe command's non-zero exit discards the
+    download."""
+    url = str(url)
+    if not is_remote_shard(url):
+        return url
+    # {sha1(url)[:10]}-{base}: the JAX package's name, so either package
+    # reads a cache the other filled
+    base = url.rstrip("/").rsplit("/", 1)[-1].rsplit(" ", 1)[-1] or "shard.tar"
+    if not base.endswith(".tar"):
+        base += ".tar"
+    local = Path(cache_dir) / f"{hashlib.sha1(url.encode()).hexdigest()[:10]}-{base}"
+    if local.exists():
+        return str(local)
+    local.parent.mkdir(parents=True, exist_ok=True)
+    tmp = local.with_suffix(local.suffix + f".tmp{os.getpid()}.{threading.get_ident()}")
+    try:
+        with open(tmp, "wb") as out:
+            if url.startswith("pipe:"):
+                rc = subprocess.run(url[len("pipe:"):], shell=True, stdout=out).returncode
+                if rc != 0:
+                    raise RuntimeError(f"shard pipe command failed (exit {rc}): {url}")
+            else:
+                with urllib.request.urlopen(url) as resp:
+                    shutil.copyfileobj(resp, out)
+        tmp.replace(local)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return str(local)
 
 
 def iter_tar_samples(path) -> Iterator[Dict[str, bytes]]:
     """Stream samples (dicts of raw bytes keyed by suffix, plus
-    ``__key__``) from a local tar shard. Files are grouped by prefix, in
-    tar order."""
+    ``__key__``) from a shard: a local file, a ``pipe:`` source or an
+    http(s) URL (:func:`open_shard`). Files are grouped by prefix, in tar
+    order."""
     current_key: Optional[str] = None
     sample: Dict[str, bytes] = {}
-    with tarfile.open(_local(path), "r") as tf:
+    with open_shard(path) as tf:
         for member in tf:
             if not member.isfile():
                 continue
@@ -112,9 +215,11 @@ def decode_sample(
 
 
 class ShardSampleStream:
-    """Iterate decoded samples over a list of local shards, optionally
-    forever. ``shuffle`` is the webdataset-style buffered shuffle size
-    (0 = off); the shard order reshuffles each pass when shuffling is on."""
+    """Iterate decoded samples over a list of shards, optionally forever.
+    ``shuffle`` is the webdataset-style buffered shuffle size (0 = off); the
+    shard order reshuffles each pass when shuffling is on. With
+    ``cache_dir``, a remote shard is copied there on first touch and read
+    from the copy (:func:`cache_shard`)."""
 
     def __init__(
         self,
@@ -123,11 +228,23 @@ class ShardSampleStream:
         shuffle: int = 0,
         seed: int = 0,
         loop: bool = False,
+        cache_dir: Optional[str] = None,
     ):
-        self.shards = [_local(s) for s in shards]
+        self.shards = [str(s) for s in shards]
+        if loop and not self.shards:
+            raise ValueError("a looping sample stream needs at least one shard")
         self.shuffle = shuffle
         self.loop = loop
+        self.cache_dir = cache_dir
         self._rng = random.Random(seed)
+
+    def _resolve(self, shard: str) -> str:
+        """A remote shard's cached copy when there is a cache."""
+        return shard if self.cache_dir is None else cache_shard(shard, self.cache_dir)
+
+    def _iter_shard(self, shard: str) -> Iterator[Dict]:
+        for raw in iter_tar_samples(shard):
+            yield decode_sample(raw)
 
     def __iter__(self) -> Iterator[Dict]:
         while True:
@@ -136,8 +253,7 @@ class ShardSampleStream:
                 self._rng.shuffle(shards)
             buf: List[Dict] = []
             for shard in shards:
-                for raw in iter_tar_samples(shard):
-                    sample = decode_sample(raw)
+                for sample in self._iter_shard(self._resolve(shard)):
                     if self.shuffle <= 1:
                         yield sample
                         continue
@@ -153,15 +269,86 @@ class ShardSampleStream:
 
 
 def count_shard_samples(path) -> int:
-    """Sample count of one shard, from the tar headers (no decode)."""
+    """Sample count of one shard, by grouping its members (no decode)."""
     return sum(1 for _ in iter_tar_samples(path))
+
+
+class NativeShardSampleStream(ShardSampleStream):
+    """The stream through the C++ reader: each local shard's tar index,
+    then its images, masks and lu layers decoded as three batches on
+    ``n_threads`` threads (clamped to the host's cores). The samples, and
+    their order, are those of :class:`ShardSampleStream`.
+
+    A remote shard without a cache is a sequential stream, with no file
+    for the tar index: it goes through the Python reader. A local shard
+    that the C++ decoder refuses (planar TIFFs, a strip table that does
+    not cover the image, members of other dims) is read through PIL, with
+    a warning and an entry in :data:`NATIVE_FALLBACKS`."""
+
+    def __init__(self, *args, n_threads: int = 4, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.n_threads = n_threads
+
+    def _decode_shard(self, shard: str) -> List[Dict]:
+        from deadtrees_tpu_torch.data import native
+
+        samples = native.index_shard_samples(shard)
+        keys = list(samples)
+        if not keys:
+            return []
+        first = samples[keys[0]]["rgbn.tif"]
+        with open(shard, "rb") as f:
+            f.seek(first[0])
+            h, w = native.tiff_decode(f.read(first[1])).shape[:2]
+
+        def batch(suffix, c):
+            if suffix not in samples[keys[0]]:
+                return None
+            extents = [samples[k][suffix] for k in keys]
+            return native.decode_batch(shard, extents, (h, w, c), n_threads=self.n_threads)
+
+        rgbn, masks, lus = batch("rgbn.tif", 4), batch("mask.tif", 1), batch("lu.tif", 1)
+        out = []
+        with open(shard, "rb") as f:
+            for i, k in enumerate(keys):
+                sample: Dict = {"image": rgbn[i]}
+                if "txt" in samples[k]:
+                    off, size = samples[k]["txt"]
+                    f.seek(off)
+                    sample["stats"] = {"file": k, "frac": float(f.read(size))}
+                if masks is not None:
+                    sample["mask"] = masks[i, ..., 0]
+                if lus is not None:
+                    sample["lu"] = lus[i, ..., 0]
+                out.append(sample)
+        return out
+
+    def _iter_shard(self, shard: str) -> Iterator[Dict]:
+        if is_remote_shard(shard):
+            yield from super()._iter_shard(shard)
+            return
+        try:
+            decoded = self._decode_shard(shard)
+        except (ValueError, KeyError, OSError) as e:
+            log.warning(f"native decode of {shard} failed ({e!r}); reading it through PIL")
+            NATIVE_FALLBACKS.append(shard)
+            yield from super()._iter_shard(shard)
+            return
+        yield from decoded
 
 
 def make_sample_stream(
     shards, *, shuffle: int = 0, seed: int = 0, loop: bool = False,
-    prefer_native: bool = False,
+    prefer_native: bool = True, n_threads: int = 4, cache_dir: Optional[str] = None,
 ) -> ShardSampleStream:
-    """The Python stream; the native C++ reader is not ported yet."""
+    """The native stream when ``prefer_native`` (its library is built on
+    first use, and a failed build raises), else the PIL stream."""
     if prefer_native:
-        raise NotImplementedError(f"the native C++ shard reader is not ported yet {_QUEUED}")
-    return ShardSampleStream(shards, shuffle=shuffle, seed=seed, loop=loop)
+        from deadtrees_tpu_torch.data import native
+
+        native.load()
+        return NativeShardSampleStream(
+            shards, shuffle=shuffle, seed=seed, loop=loop, n_threads=n_threads,
+            cache_dir=cache_dir,
+        )
+    return ShardSampleStream(shards, shuffle=shuffle, seed=seed, loop=loop, cache_dir=cache_dir)

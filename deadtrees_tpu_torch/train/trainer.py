@@ -240,6 +240,10 @@ class Trainer:
                 pattern=dmc.get("pattern", "*.tar"),
                 batch_size=int(dmc.get("batch_size", 32)),
                 pattern_extra=dmc.get("pattern_extra"),
+                batch_size_extra=dmc.get("batch_size_extra"),
+                num_workers=int(dmc.get("num_workers", 2)),
+                use_native=bool(dmc.get("use_native", True)),
+                cache_dir=dmc.get("cache_dir"),
                 in_channels=self.in_channels,
                 classes=self.num_classes,
                 distmap=True,

@@ -52,7 +52,9 @@ def test_importing_every_module_loads_no_jax():
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "from deadtrees_tpu_torch.ops import _build\n"
-        "print(json.dumps({'modules': sorted(sys.modules), 'built': sorted(_build._libs)}))\n"
+        "from deadtrees_tpu_torch.data import native\n"
+        "print(json.dumps({'modules': sorted(sys.modules), 'built': sorted(_build._libs),\n"
+        "                  'native': native._lib is not None}))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -64,6 +66,7 @@ def test_importing_every_module_loads_no_jax():
     assert [m for m in loaded if _is_forbidden(m)] == []
     assert "triton" not in loaded
     assert report["built"] == []  # no kernel is built at import time
+    assert not report["native"]  # nor the native shard reader
 
 
 @pytest.mark.parametrize(

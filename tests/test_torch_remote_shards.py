@@ -1,0 +1,254 @@
+"""Remote and cached shards in the port against the JAX package.
+
+``pipe:CMD`` sources (the command's stdout is the tar stream) and http(s)
+URLs read as the local file does; a pipe that fails raises, exit codes
+included; brace ranges expand as JAX's do; ``cache_shard`` writes the file
+JAX's would, under the same name, atomically, and the native reader reads
+the cached copy. A producer stops while a ``pipe:`` extra still streams.
+"""
+
+import functools
+import http.server
+import os
+import socketserver
+import tarfile
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from deadtrees_tpu.data import discover_shards as jax_discover_shards
+from deadtrees_tpu.data import expand_shard_urls as jax_expand_shard_urls
+from deadtrees_tpu.data.tar import ShardSampleStream as JaxShardSampleStream
+from deadtrees_tpu.data.tar import cache_shard as jax_cache_shard
+from deadtrees_tpu_torch.data import native
+from deadtrees_tpu_torch.data import tar as torch_tar
+from deadtrees_tpu_torch.data.pipeline import DataConfig, DeadtreesDataModule, _BatchProducer
+from deadtrees_tpu_torch.data.shards import discover_shards
+from deadtrees_tpu_torch.data.tar import (
+    cache_shard,
+    expand_shard_urls,
+    iter_tar_samples,
+    make_sample_stream,
+)
+from tests.test_torch_native import assert_same_samples, write_shard
+
+
+@pytest.fixture
+def shard(tmp_path):
+    path = tmp_path / "train-000000.tar"
+    write_shard(path, 5)
+    return path
+
+
+def _keys(samples):
+    return [s["__key__"].decode() for s in samples]
+
+
+def test_pipe_shard_equals_the_local_file(shard):
+    local = list(iter_tar_samples(str(shard)))
+    piped = list(iter_tar_samples(f"pipe:cat {shard}"))
+    assert _keys(piped) == [f"tile_{i:04d}" for i in range(5)]
+    assert piped == local
+
+
+def test_pipe_that_fails_after_a_clean_stream_raises(shard):
+    with pytest.raises(RuntimeError, match=r"exit 1"):
+        list(iter_tar_samples(f"pipe:cat {shard} && false"))
+    with pytest.raises(RuntimeError, match=r"exit 3"):
+        list(iter_tar_samples(f"pipe:cat {shard}; exit 3"))
+
+
+def test_pipe_true_gives_no_samples():
+    got = []
+    with pytest.raises(tarfile.ReadError):
+        got.extend(iter_tar_samples("pipe:true"))
+    assert got == []
+
+
+def test_abandoned_pipe_stream_kills_its_child(shard, tmp_path):
+    """Closing the stream after one sample kills the child, which is still
+    writing (the shard, then forever), instead of waiting on it."""
+    pidfile = tmp_path / "pid"
+    it = iter_tar_samples(f"pipe:echo $$ > {pidfile}; exec sh -c 'cat {shard}; exec cat /dev/zero'")
+    assert next(it)["__key__"] == b"tile_0000"
+    t0 = time.perf_counter()
+    it.close()
+    assert time.perf_counter() - t0 < 10
+    with pytest.raises(ProcessLookupError):
+        os.kill(int(pidfile.read_text()), 0)
+
+
+class _QuietHandler(http.server.SimpleHTTPRequestHandler):
+    def log_message(self, *args):
+        pass
+
+
+@pytest.fixture
+def http_root(tmp_path):
+    handler = functools.partial(_QuietHandler, directory=str(tmp_path))
+    with socketserver.TCPServer(("127.0.0.1", 0), handler) as httpd:
+        t = threading.Thread(target=httpd.serve_forever, daemon=True)
+        t.start()
+        try:
+            yield f"http://127.0.0.1:{httpd.server_address[1]}"
+        finally:
+            httpd.shutdown()
+            t.join(10)
+
+
+def test_http_shard_stream(shard, http_root):
+    got = list(iter_tar_samples(f"{http_root}/{shard.name}"))
+    assert got == list(iter_tar_samples(str(shard)))
+    cached = cache_shard(f"{http_root}/{shard.name}", shard.parent / "cache")
+    assert Path(cached).read_bytes() == shard.read_bytes()
+
+
+SPECS = ["s-{000..002}.tar", "pipe:cat s-{08..11}.tar", "plain.tar",
+         "http://host/a/train-{000000..000003}.tar", "pipe:gsutil cat gs://b/x-{7..9}.tar"]
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_brace_expansion_equals_jax(spec):
+    assert expand_shard_urls(spec) == jax_expand_shard_urls(spec)
+
+
+def test_discover_shards_of_a_remote_spec(tmp_path):
+    spec = f"pipe:cat {tmp_path}/s-{{000..003}}.tar"
+    urls = discover_shards(spec, "*.tar")
+    assert urls == jax_discover_shards(spec, "*.tar")
+    assert len(urls) == 4 and urls[0] == f"pipe:cat {tmp_path}/s-000.tar"
+    write_shard(tmp_path / "train-000000.tar", 2)
+    assert discover_shards(str(tmp_path), "*.tar") == jax_discover_shards(str(tmp_path), "*.tar")
+
+
+URLS = ["pipe:cat {shard}", "pipe:cat {shard} | cat", "{http}/train-000000.tar"]
+
+
+@pytest.mark.parametrize("url", URLS)
+def test_cache_shard_writes_the_file_jax_writes(shard, http_root, tmp_path, url):
+    """The same URL lands under the same name with the same bytes in both
+    packages' caches, so either reads a cache the other filled."""
+    url = url.format(shard=shard, http=http_root)
+    ours = cache_shard(url, tmp_path / "ours")
+    theirs = jax_cache_shard(url, tmp_path / "theirs")
+    assert Path(ours).name == Path(theirs).name
+    assert Path(ours).read_bytes() == Path(theirs).read_bytes() == shard.read_bytes()
+    # a copy the JAX package cached is read as it stands
+    assert cache_shard(url, tmp_path / "theirs") == theirs
+
+
+def test_cache_shard_fetches_once_and_atomically(shard, tmp_path):
+    cache = tmp_path / "cache"
+    marker = tmp_path / "fetches.log"
+    url = f"pipe:cat {shard} && echo hit >> {marker}"
+    paths = []
+    threads = [threading.Thread(target=lambda: paths.append(cache_shard(url, cache)))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert len(set(paths)) == 1 and len(paths) == 4
+    assert [p.name for p in cache.iterdir()] == [Path(paths[0]).name]  # no temporaries
+    assert Path(paths[0]).read_bytes() == shard.read_bytes()
+    fetched = marker.read_text().count("hit")
+    assert 1 <= fetched <= 4
+    cache_shard(url, cache)
+    assert marker.read_text().count("hit") == fetched  # cached: no fetch
+    assert cache_shard(str(shard), cache) == str(shard)  # a local path passes through
+
+
+@pytest.mark.parametrize("cmd", ["false", "cat {shard}; exit 2"])
+def test_failed_download_is_discarded(shard, tmp_path, cmd):
+    cache = tmp_path / "cache"
+    with pytest.raises(RuntimeError, match="exit"):
+        cache_shard("pipe:" + cmd.format(shard=shard), cache)
+    assert list(cache.iterdir()) == []
+
+
+def test_cached_shard_read_natively(tmp_path, monkeypatch):
+    """Epoch 1 streams the pipe into the cache; every later epoch reads the
+    copy through the native reader; the samples are the local file's."""
+    shards = []
+    for i in range(2):
+        p = tmp_path / f"train-{i:06d}.tar"
+        write_shard(p, 4, seed=i, prefix=f"s{i}")
+        shards.append(p)
+    marker = tmp_path / "fetches.log"
+    urls = [f"pipe:cat {p} && echo hit >> {marker}" for p in shards]
+    decoded = []
+    decode_batch = native.decode_batch
+    monkeypatch.setattr(native, "decode_batch",
+                        lambda path, *a, **k: decoded.append(path) or decode_batch(path, *a, **k))
+    torch_tar.NATIVE_FALLBACKS.clear()
+    stream = make_sample_stream(urls, shuffle=3, seed=5, cache_dir=str(tmp_path / "cache"))
+    jax_stream = JaxShardSampleStream([str(p) for p in shards], shuffle=3, seed=5)
+    for _ in range(3):
+        assert_same_samples(list(stream), list(jax_stream))
+    assert marker.read_text().count("hit") == 2  # one fetch a shard
+    assert len(decoded) == 3 * 3 * 2  # 3 epochs x 2 shards x (rgbn, mask, lu)
+    assert all(Path(p).parent == tmp_path / "cache" for p in decoded)
+    assert torch_tar.NATIVE_FALLBACKS == []
+
+
+def test_remote_shard_without_a_cache_streams_through_python(shard, monkeypatch):
+    monkeypatch.setattr(native, "decode_batch", lambda *a, **k: pytest.fail("native decode"))
+    got = list(make_sample_stream([f"pipe:cat {shard}"], prefer_native=True))
+    assert_same_samples(got, list(JaxShardSampleStream([str(shard)])))
+
+
+def test_stop_returns_while_a_pipe_extra_streams(tmp_path):
+    """A looping ``pipe:`` producer whose consumer stopped reading (queue
+    full, child mid-shard) stops within its timeout and kills its child."""
+    big = tmp_path / "big-000000.tar"
+    write_shard(big, 24, size=64)
+    pidfile = tmp_path / "pid"
+    url = f"pipe:echo $$ >> {pidfile}; exec cat {big}"
+    cfg = DataConfig(data_dir=str(tmp_path), batch_size=1, prefetch=0, device="cpu")
+    producer = _BatchProducer(make_sample_stream([url], loop=True, prefer_native=False), 1,
+                              cfg, pin=False)
+    it = iter(producer)
+    next(it)
+    time.sleep(0.5)  # the queue fills; the thread waits with the child mid-shard
+    t0 = time.perf_counter()
+    producer.stop(timeout=10)
+    assert time.perf_counter() - t0 < 10
+    assert not producer._thread.is_alive()
+    for pid in pidfile.read_text().split():
+        with pytest.raises(ProcessLookupError):
+            os.kill(int(pid), 0)
+
+
+def test_datamodule_on_piped_and_cached_shards_equals_local(tmp_path):
+    """Train from ``pipe:cat .../{000000..000003}.tar`` with a cache: two
+    epochs give the host batches of the local shards with the same seed."""
+    local = tmp_path / "local"
+    for i in range(4):
+        write_shard(local / f"train-combo-{i:06d}.tar", 4, seed=i, prefix=f"p{i}")
+    spec = f"pipe:cat {local}/train-combo-{{000000..000003}}.tar"
+
+    def epochs(data_dir, **kw):
+        dm = DeadtreesDataModule(DataConfig(data_dir=data_dir, pattern="train-combo-*.tar",
+                                            batch_size=2, device="cpu", distmap=False, **kw))
+        dm.setup()
+        out = []
+        for seed in (0, 1):
+            out += [(b["image"], b["files"])
+                    for b in dm.train_batches(torch.Generator().manual_seed(seed))]
+        return dm, out
+
+    dm, want = epochs(str(local))
+    cache = tmp_path / "cache"
+    dm_remote, got = epochs(spec, cache_dir=str(cache))
+    assert dm_remote.train_shards == [f"pipe:cat {local}/train-combo-{i:06d}.tar"
+                                      for i in range(2)]
+    assert dm_remote.steps_per_epoch == dm.steps_per_epoch == 4
+    assert len(got) == len(want) == 8
+    for (gi, gf), (wi, wf) in zip(got, want):
+        assert gf == wf
+        np.testing.assert_array_equal(gi.numpy(), wi.numpy())
+    assert len(list(cache.iterdir())) == 2  # the two train shards, fetched once each

@@ -5,8 +5,9 @@ narrow decoder channels over two tiny shards (train and val, 32² RGBN
 TIFF tiles written with the port's ``ShardWriter``), with the MultiStage
 freeze in the first epoch. Its best checkpoint must load in
 ``deadtrees_tpu.core.load_model`` and give the port's float32 logits to
-1e-4. What the port does not have yet raises ``NotImplementedError``; the
-rest of the recipe is in tests/test_torch_recipe.py.
+1e-4. What the port does not have yet (several devices or processes)
+raises ``NotImplementedError``; the rest of the recipe is in
+tests/test_torch_recipe.py.
 """
 
 import io
@@ -171,18 +172,23 @@ def test_two_class_collapse(dataset):
     assert int(batch["mask"].max()) == 1 and batch["distmap"].shape[1] == 2
 
 
-def test_unported_features_raise(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="devices"):
-        Trainer(_config(dataset, trainer={"devices": 4}), tmp_path, "cpu")
-    with pytest.raises(NotImplementedError, match="remote shard"):
-        Trainer(_config(dataset, data_dir="pipe:cat shard-{000000..000003}.tar"),
-                tmp_path, "cpu").fit()
-    with pytest.raises(NotImplementedError, match="process_count"):
-        DeadtreesDataModule(DataConfig(data_dir=str(dataset / "train"), process_count=2,
-                                       device="cpu"))
-    with pytest.raises(NotImplementedError, match="pattern_extra"):
-        DeadtreesDataModule(DataConfig(data_dir=str(dataset / "train"),
-                                       pattern_extra=["extra-*.tar"], device="cpu"))
+UNPORTED = {
+    "devices": lambda d, tmp: Trainer(_config(d, trainer={"devices": 4}), tmp, "cpu"),
+    "process_count": lambda d, tmp: DeadtreesDataModule(
+        DataConfig(data_dir=str(d / "train"), process_count=2, device="cpu")),
+    "process_count in the config": lambda d, tmp: Trainer(
+        _config(d, datamodule={"pattern": "train-combo-*.tar", "batch_size": 2,
+                               "process_count": 2}), tmp, "cpu").fit(),
+}
+
+
+@pytest.mark.parametrize("feature", list(UNPORTED))
+def test_unported_features_raise(dataset, tmp_path, feature):
+    """What is still queued raises, naming itself: several devices, several
+    processes (ROADMAP.md, queue 1, item 8)."""
+    match = "devices" if feature == "devices" else r"process_count.*queue 1, item 8"
+    with pytest.raises(NotImplementedError, match=match):
+        UNPORTED[feature](dataset, tmp_path)
 
 
 def test_trainer_runs_on_cuda_unless_asked(dataset, tmp_path, monkeypatch):
