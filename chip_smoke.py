@@ -121,6 +121,50 @@ Phases (each raises on failure, so the script exits non-zero):
    in phases 8, 13 and 14. A ``data`` line with these numbers comes
    before the kernels line.
 
+15. The compiled programs (run last). On CUDA the serving programs and
+   the augment compile by default (``core/compile_opts.py``):
+   TorchInductor, replayed as a CUDA graph, the kernels as opaque custom
+   ops. The programs whose compiled form this phase does not hold against
+   the eager one run eagerly on CUDA unless ``DEADTREES_COMPILE_OPTS`` is
+   set (``by_default=False``): the train step's two programs, the eval
+   and predict steps, SWA's BatchNorm pass, w8a8, TTA and the ensemble
+   vote (a cold compile of the b5's train step outlasts this script's
+   limit; w8a8, TTA and the vote are checked compiled on the CPU only,
+   ``tests/test_torch_compiled_*.py``). A cold compile of the b5 takes
+   minutes a program on the card (``PERF.md`` §6), so phases 2-14 run
+   under ``disable_compile()`` (every check as before, on the eager path,
+   which the kernel timings and the exact launch counts need). For phases
+   8 and 13 that changes one program only: their train, eval and SWA
+   programs run eagerly by default, and the augment, the one program on
+   their path that compiles by default, is held bit-equal to the eager
+   call here (eager, kernel 4's launches stay one a batch: a replay runs
+   no wrapper). Two ``--warm`` processes, started right after the build,
+   compile phase 15's programs cold while phases 2-13 run (lane a: the
+   ``"chw"`` engine at bs 4, the augment program and the scene chunk;
+   lane b: ``"nhwc"`` and plain at bs 4); the main process joins them
+   before phase 14 and compiles the same graphs warm in phase 15. Phase
+   15 drives the default entry points at bs 4 (cut from 1, 4, 32 and 128:
+   each batch size is a cold compile): ``TorchInference`` ``"chw"``,
+   ``"auto"``, ``"nhwc"``, plain and w8 (the last two share a graph, as
+   ``"auto"`` and ``"chw"`` do at bs ≤ 32): each route's first call and
+   compile seconds, class maps against the same route run eagerly
+   (≥ 0.99), latency and tiles/s in turns (compiled, eager, eager,
+   compiled), device time by group and the idle share (torch.profiler, 3
+   runs), peak memory, and one replayed forward's trace: 22 + 22 kernel-1
+   passes on chw, 14 + 14 NHWC passes on nhwc, no host-to-device copy, no
+   custom op's Python (where the plain versions run), a CUDA-graph
+   launch; 8 concurrent requests through ``serve_stdlib`` in groups of 4,
+   answered by compiled programs; 16 scenes of 2048² through
+   ``predict_scenes`` with chunks of 16 (cut from 128): equal to the same
+   program run one scene at a time through ``predict_scene``, and against
+   the eager predictor per 512² subtile (each ≥ 0.95, the mean ≥ 0.99);
+   ``augment_batch`` at the training batch bit-equal to the eager call,
+   kernel 4 once a replay (run first; the server last: it runs its
+   programs in a thread of its own). A ``compiled`` line with the
+   warmers' cold and phase 15's warm compile seconds, the numbers above,
+   the phase's and the script's wall time and the card comes before the
+   kernels line.
+
 The last line is the device record; the line before it the card's name
 and power limit, and before that one JSON object describing the kernels
 (the contract's keys, plus ``tc_bound_ms`` and ``f32_bound_ms`` for every
@@ -139,6 +183,7 @@ import contextlib
 import http.server
 import io
 import json
+import os
 import re
 import shutil
 import signal
@@ -159,6 +204,10 @@ SEED = 0
 BAR = {"float32": 1e-3, "bfloat16": 2e-2}
 FORWARD_F32_BAR = 5e-3
 AGREE_BF16 = 0.99
+# a compiled scene's 512² subtile against the eager one's: bf16 rounding flips
+# near-ties over the whole map (their mean is held at AGREE_BF16), so no
+# subtile may stand far below it (the overlap's own witness is an equality)
+AGREE_TILE = 0.95
 # card rates for the bound (NVIDIA H100 SXM data sheet): HBM bytes/s and
 # float32 FLOP/s on the CUDA cores (the kernels' arithmetic type)
 HBM_BYTES_PER_S = 3.35e12
@@ -279,12 +328,21 @@ def rel_bar(ref, dtype_name: str) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_device():
+def set_precision() -> None:
+    """float32 convolutions and products in full float32 (the float32
+    comparisons need it). Part of inductor's cache key: the warmers set it
+    too, so that phase 15 finds their programs."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def phase_device():
+    import torch
+
+    set_precision()
     log("precision: cudnn.allow_tf32=False, matmul.allow_tf32=False, "
         "float32 matmul precision 'highest' (for the float32 comparisons)")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1617,14 +1675,14 @@ def phase_train(card: str) -> dict:
     bad["image"][0, 0, 0, 0] = float("nan")
     before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     opt = trainer.state.optimizer
-    moments, count = [t.clone() for t in opt.mu + opt.nu], opt.count
+    moments, count = [t.clone() for t in opt.mu + opt.nu], opt.count.clone()
     n_bn = len(bn_buffers(trainer.model))
     step0 = trainer.state.step
     _, m = trainer.train_step(trainer.state, bad, 1)
     if np.isfinite(float(m["total_loss"])) or trainer.state.step != step0 + 1:
         raise AssertionError("the NaN batch gave a finite loss or did not tick the step")
     changed = [k for k, v in trainer.model.state_dict().items() if not torch.equal(v, before[k])]
-    if changed or opt.count != count or not all(
+    if changed or not torch.equal(opt.count, count) or not all(
             torch.equal(a, b) for a, b in zip(opt.mu + opt.nu, moments)):
         raise AssertionError(f"a NaN batch changed the state: {changed[:5]}")
     log(f"NaN batch: loss {float(m['total_loss'])}; parameters, {n_bn} BN buffers and the "
@@ -2102,7 +2160,7 @@ def phase_recipe(card: str) -> dict:
                              f"{trainer.swa_bn_batches} recalibration batches")
     if any(v for k, v in counts.items() if k != AUGMENT):
         raise AssertionError(f"the recipe launched another kernel: {counts}")
-    if abs(stage - 1 / 3) > 1e-9 or trainer.state.optimizer.count != 2 * TRAIN_STEPS:
+    if abs(stage - 1 / 3) > 1e-9 or int(trainer.state.optimizer.count) != 2 * TRAIN_STEPS:
         raise AssertionError(f"the stage at the end: lr x {stage}, count "
                              f"{trainer.state.optimizer.count}")
     tests = {k: v for k, v in result.items() if k.startswith("test/")}
@@ -2616,6 +2674,464 @@ def phase_data(card: str, train: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15
+# ---------------------------------------------------------------------------
+
+COMPILED_BS = 4  # the serving batch phase 15 compiles (cut from 1, 4, 32 and 128)
+SERVING_ROUTES = {
+    "chw": {"fused_decoder": "chw"}, "auto": {"fused_decoder": "auto"},
+    "nhwc": {"fused_decoder": "nhwc"}, "plain": {}, "w8": {"quantized": "w8"},
+}
+SCENE_CHUNK = 16  # the scene predictor's chunk phase 15 compiles (cut from 128)
+COMPILED_SCENES = 16
+# what each warmer compiles cold, in a process of its own; "auto" and w8
+# trace the graphs of "chw" and plain at this batch and find them compiled
+WARM_LANES = {"a": ("chw", "augment", "scene"), "b": ("nhwc", "plain")}
+WARM_THREADS = 3  # inductor compile workers a warmer: 2 x 3 of the host's 8 cores
+WARM_DIR = REPO / "build" / "chip_smoke" / "warm"
+SERVER_REQUESTS = 8
+
+
+def program_seconds(*programs) -> list:
+    """The seconds of every compiling call of ``programs``
+    (``core.compile_opts.Program.compiles``)."""
+    return [round(s, 3) for p in programs for s, _ in p.compiles]
+
+
+def _augment_batch_u8(bs: int = TRAIN_BS):
+    """A train batch as the data module uploads it: uint8 RGBN, uint8 mask
+    and lu (random), on the card."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 19)
+    return {"image": torch.from_numpy(rng.integers(0, 256, (bs, IMG, IMG, 4), np.uint8)).cuda(),
+            "mask": torch.from_numpy(rng.integers(0, 3, (bs, IMG, IMG), np.uint8)).cuda(),
+            "lu": torch.from_numpy(rng.integers(0, 2, (bs, IMG, IMG), np.uint8)).cuda()}
+
+
+def _scenes(n: int = COMPILED_SCENES) -> list:
+    rng = np.random.default_rng(SEED + 31)
+    return [rng.integers(0, 256, (SCENE, SCENE, 4), dtype=np.uint8) for _ in range(n)]
+
+
+def warm(lane: str) -> int:
+    """``chip_smoke.py --warm LANE``, in a process of its own while the main
+    process runs phases 2-13: compile the programs of phase 15 that
+    ``WARM_LANES[LANE]`` names, cold (a fresh inductor cache under
+    build/torch_compile), and write each one's compile seconds to
+    build/chip_smoke/warm/LANE.json. Phase 15 compiles the same graphs in
+    the main process from the cache (warm)."""
+    import torch
+
+    from deadtrees_tpu_torch.data.augment import _PROGRAM as augment_program
+    from deadtrees_tpu_torch.data.augment import augment_batch, sample_augment_params
+    from deadtrees_tpu_torch.infer import TorchInference, make_scene_predictor, predict_scenes
+
+    set_precision()
+    ckpt = WARM_DIR.parent / "flagship_b5.ckpt"
+    img = np.random.default_rng(SEED + 15).integers(0, 256, (COMPILED_BS, IMG, IMG, 4), np.uint8)
+    out = {}
+    t0 = time.perf_counter()
+    for name in WARM_LANES[lane]:
+        if name == "augment":
+            b = _augment_batch_u8()
+            params = {k: v.cuda() for k, v in
+                      sample_augment_params(torch.Generator().manual_seed(SEED), TRAIN_BS).items()}
+            augment_batch(None, b["image"], b["mask"], b["lu"], params=params)
+            out[name] = program_seconds(augment_program)
+        elif name == "scene":
+            model = TorchInference(ckpt).model
+            fn = make_scene_predictor(model, subtile=IMG, batch_size=SCENE_CHUNK, packed=True)
+            predict_scenes(model, _scenes(1), tile_shape=(SCENE, SCENE), subtile=IMG,
+                           batch_size=SCENE_CHUNK, predictor=fn)
+            out[name] = program_seconds(fn.program)
+            del model, fn
+        else:
+            engine = TorchInference(ckpt, **SERVING_ROUTES[name])
+            engine.run(img)
+            out[name] = program_seconds(engine._calibrate, engine._program)
+            del engine
+        torch.compiler.reset()
+        torch.cuda.empty_cache()
+    out["lane_s"] = time.perf_counter() - t0
+    (WARM_DIR / f"{lane}.json").write_text(json.dumps(out))
+    return 0
+
+
+def start_warmers() -> list:
+    """Start one ``--warm`` process a lane; their output goes to
+    build/chip_smoke/warm/LANE.log."""
+    shutil.rmtree(WARM_DIR, ignore_errors=True)
+    WARM_DIR.mkdir(parents=True)
+    procs = []
+    for lane in WARM_LANES:
+        log_file = open(WARM_DIR / f"{lane}.log", "w")
+        env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS=str(WARM_THREADS))
+        procs.append((lane, log_file, subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--warm", lane],
+            cwd=REPO, env=env, stdout=log_file, stderr=subprocess.STDOUT)))
+    log(f"phase 15's warmers started: {WARM_LANES} (cold compiles, in the background)")
+    return procs
+
+
+def stop_warmers(procs: list) -> None:
+    for _, log_file, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        log_file.close()
+
+
+def join_warmers(procs: list, timeout: float) -> dict:
+    """Wait for the warmers; their cold compile seconds by lane and the
+    seconds waited. Raises if one failed (its log's tail in the message)."""
+    out = {}
+    t0 = time.perf_counter()
+    for lane, log_file, proc in procs:
+        rc = proc.wait(max(1.0, timeout - (time.perf_counter() - t0)))
+        log_file.flush()
+        if rc != 0:
+            tail = (WARM_DIR / f"{lane}.log").read_text()[-3000:]
+            raise RuntimeError(f"the warmer of lane {lane} exited {rc}:\n{tail}")
+        out[lane] = json.loads((WARM_DIR / f"{lane}.json").read_text())
+    out["waited_s"] = time.perf_counter() - t0
+    log(f"phase 15's warmers joined after {out['waited_s']:.1f} s of waiting: {out}")
+    return out
+
+
+def _profile(fn, reps: int, path: Path) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn`` after one outside it:
+    wall per call, device busy per call (the union of the device's busy
+    intervals), ms by group, the kernels by name and the trace's events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(2):  # a profile that recorded no device activity runs again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps * 1e3
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        if any(e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") for e in events):
+            break
+        log(f"  torch.profiler recorded no device activity in {path.name} (attempt {attempt})")
+    busy, _ = _device_busy_ms(events)
+    groups, kernels = {}, {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            g = _kernel_group(e)
+            groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3 / reps
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    if not groups:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return {"wall_ms": wall, "busy_ms": busy / reps, "idle": 1 - busy / reps / wall,
+            "groups": groups, "kernels": kernels, "events": events}
+
+
+def count_kernels(kernels: dict, prefix: str) -> int:
+    """Launches of the port's kernels whose name starts with ``prefix``
+    (``pass1_``, ``nhwc_p2_``, ``augment_`` ...) in a trace's kernels."""
+    n = 0
+    for name, k in kernels.items():
+        if port_kernel_group(name) is None:
+            continue
+        head = re.split(r"[<(]", name.replace("(anonymous namespace)::", ""), maxsplit=1)[0]
+        if head.split("::")[-1].split()[-1].startswith(prefix):
+            n += k
+    return n
+
+
+def replay_check(label: str, fn, path: Path, want: dict) -> dict:
+    """Profile one call of a compiled program's replay: the port kernels'
+    launches by name (``want``: prefix → count; the others 0), no
+    host-to-device copy, no custom op's Python (the plain versions and the
+    kernels' wrappers run only there) and a CUDA-graph launch."""
+    prof = _profile(fn, 1, path)
+    names = [e.get("name", "") for e in prof["events"]]
+    h2d = sum(1 for e in prof["events"]
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
+    op_calls = sum(1 for n in names if n.startswith("deadtrees::"))
+    graphs = sum(1 for n in names if n.startswith("cudaGraphLaunch"))
+    launches = {k: count_kernels(prof["kernels"], k)
+                for k in ("pass1_", "pass2_", "nhwc_p1_", "nhwc_p2_", "dw_", "augment_")}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"{label}: one replay launched {launches}, expected {want}")
+    if h2d or op_calls or not graphs:
+        raise AssertionError(f"{label}: the replay made {h2d} host-to-device copies, ran "
+                             f"{op_calls} custom ops' Python and {graphs} graph launches "
+                             "(expected 0, 0 and at least 1)")
+    return {"launches": {k: v for k, v in launches.items() if v}, "graph_launches": graphs}
+
+
+def _turns(fn, reps: int = 10) -> dict:
+    """Median ms of ``fn()`` compiled and eager, in turns (compiled, eager,
+    eager, compiled), each turn after a call outside it."""
+    import torch
+
+    from deadtrees_tpu_torch.core.compile_opts import disable_compile
+
+    times = {"compiled": [], "eager": []}
+    for mode in ("compiled", "eager", "eager", "compiled"):
+        with (disable_compile() if mode == "eager" else contextlib.nullcontext()):
+            fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+        times[mode].append(statistics.median(ts))
+    return {k: statistics.median(v) * 1e3 for k, v in times.items()}
+
+
+def _groups_text(groups: dict) -> str:
+    return "; ".join(f"{g} {v:.3f}" for g, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
+def _compiled_serving(ckpt: Path) -> dict:
+    import torch
+
+    from deadtrees_tpu_torch.core.compile_opts import disable_compile, graphs_compiled
+    from deadtrees_tpu_torch.infer import TorchInference
+
+    rng = np.random.default_rng(SEED + 15)
+    img = rng.integers(0, 256, (COMPILED_BS, IMG, IMG, 4), dtype=np.uint8)
+    dev = torch.from_numpy(img).cuda()
+    trace_dir = REPO / "build" / "chip_smoke"
+    want = {"chw": {"pass1_": 22, "pass2_": 22}, "auto": {"pass1_": 22, "pass2_": 22},
+            "nhwc": {"nhwc_p1_": 14, "nhwc_p2_": 14}}
+    out = {}
+    for route, kw in SERVING_ROUTES.items():
+        engine = TorchInference(ckpt, **kw)
+        before = graphs_compiled()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = engine.run(img)
+        first_s = time.perf_counter() - t0
+        with disable_compile():
+            eager = engine.run(img)
+        agree = float((got == eager).mean())
+        if agree < AGREE_BF16:
+            raise AssertionError(f"{route}: compiled vs eager class maps agree {agree}")
+        ms = _turns(lambda: engine.run(img))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = {}
+        for mode in ("compiled", "eager"):
+            with (disable_compile() if mode == "eager" else contextlib.nullcontext()):
+                prof[mode] = _profile(lambda: engine.run(img), 3,
+                                      trace_dir / f"trace_compiled_{route}_{mode}.json")
+        replay = replay_check(route, lambda: engine.predict(dev),
+                              trace_dir / f"trace_compiled_{route}_replay.json",
+                              want.get(route, {}))
+        c, e = prof["compiled"], prof["eager"]
+        r = out[route] = {
+            "first_call_s": first_s,
+            "compile_s": program_seconds(engine._calibrate, engine._program),
+            "graphs": graphs_compiled() - before, "agree_eager": agree,
+            "latency_ms": ms["compiled"], "eager_latency_ms": ms["eager"],
+            "tiles_per_s": COMPILED_BS * 1e3 / ms["compiled"],
+            "eager_tiles_per_s": COMPILED_BS * 1e3 / ms["eager"],
+            "wall_ms": c["wall_ms"], "busy_ms": c["busy_ms"], "idle": c["idle"],
+            "eager_wall_ms": e["wall_ms"], "eager_busy_ms": e["busy_ms"], "eager_idle": e["idle"],
+            "groups_ms": c["groups"], "eager_groups_ms": e["groups"], "peak_gib": peak,
+            "replay": replay,
+        }
+        log(f"  {route:>5} bs {COMPILED_BS}: first call {first_s:.1f} s (compile "
+            f"{r['compile_s']} s, {r['graphs']} graph(s)); class maps agree with eager "
+            f"{agree:.5f}; run() {r['latency_ms']:.3f} ms compiled vs {r['eager_latency_ms']:.3f}"
+            f" eager ({r['tiles_per_s']:.1f} vs {r['eager_tiles_per_s']:.1f} tiles/s); profiled "
+            f"wall {c['wall_ms']:.3f} ms, busy {c['busy_ms']:.3f}, idle {c['idle']:.1%} (eager "
+            f"{e['wall_ms']:.3f} / {e['busy_ms']:.3f} / {e['idle']:.1%}); peak {peak:.2f} GiB; "
+            f"one replay: {replay['launches']}, {replay['graph_launches']} graph launch(es), "
+            "no H2D, no op's Python")
+        log(f"        ms by group, compiled: {_groups_text(c['groups'])}")
+        log(f"        ms by group, eager:    {_groups_text(e['groups'])}")
+        del engine, prof
+        torch.compiler.reset()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _compiled_server(ckpt: Path) -> dict:
+    """8 concurrent requests through ``serve_stdlib`` (phase 4's drive), in
+    groups of ``COMPILED_BS`` (``max_batch``; the batcher waits long enough
+    for each group to fill), answered by the engine's compiled programs."""
+    from PIL import Image
+
+    from deadtrees_tpu_torch.serve import SegmentationService, serve_stdlib
+
+    service = SegmentationService(ckpt, batch_wait_ms=3000, max_batch=COMPILED_BS)
+    server = serve_stdlib(service, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(SEED + 16)
+    uploads = []
+    for _ in range(SERVER_REQUESTS):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (IMG, IMG, 4), dtype=np.uint8), "RGBA").save(
+            buf, "PNG")
+        uploads.append(buf.getvalue())
+    results = [None] * SERVER_REQUESTS
+
+    def post(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/segmentation", data=uploads[i],
+            headers={"Content-Type": "image/png"}, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            results[i] = (resp.status, resp.read())
+
+    try:
+        engine = service.engines["torch"]
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(SERVER_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        for i, r in enumerate(results):
+            if r is None:
+                raise AssertionError(f"request {i} got no answer")
+            mask = np.asarray(Image.open(io.BytesIO(r[1])))
+            if r[0] != 200 or mask.shape != (IMG, IMG):
+                raise AssertionError(f"request {i}: {r[0]} {mask.shape}")
+        dispatches = service.batchers["torch"].dispatches
+        compiles = program_seconds(engine._program)
+        if not compiles:
+            raise AssertionError("the server's engine compiled no program")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    log(f"  server: {SERVER_REQUESTS} concurrent {IMG}² requests -> 200 in {wall:.3f} s "
+        f"(its warm compile and two 3 s batch windows included), {dispatches} dispatches of "
+        f"{COMPILED_BS}, program compiled in {compiles} s")
+    return {"wall_s": wall, "dispatches": dispatches, "compile_s": compiles}
+
+
+def _tile_agreement(got: list, want: list) -> np.ndarray:
+    """Agreement of two lists of scene maps, per 512² subtile."""
+    n = SCENE // IMG
+    return np.array([(a == b).reshape(n, IMG, n, IMG).mean(axis=(1, 3))
+                     for a, b in zip(got, want)]).ravel()
+
+
+def _compiled_scenes(ckpt: Path) -> dict:
+    """``predict_scenes`` over 16 scenes of 2048², its chunk one compiled
+    program at bs ``SCENE_CHUNK`` (one scene a chunk, two dispatches in
+    flight): maps equal to the same program run one scene at a time
+    through ``predict_scene`` (one dispatch, synchronous), so that the
+    overlap and the graph's output buffer change nothing; against the
+    eager predictor's maps per 512² subtile (bf16 rounds elsewhere once
+    fused); tiles/s in turns."""
+    import torch
+
+    from deadtrees_tpu_torch.core.compile_opts import disable_compile
+    from deadtrees_tpu_torch.infer import (
+        TorchInference,
+        make_scene_predictor,
+        predict_scene,
+        predict_scenes,
+    )
+
+    model = TorchInference(ckpt).model
+    scenes = _scenes()
+    fn = make_scene_predictor(model, subtile=IMG, batch_size=SCENE_CHUNK, packed=True)
+    kw = dict(tile_shape=(SCENE, SCENE), subtile=IMG, batch_size=SCENE_CHUNK, predictor=fn)
+    t0 = time.perf_counter()
+    got = predict_scenes(model, scenes, **kw)
+    first_s = time.perf_counter() - t0
+    one_by_one = [predict_scene(model, sc, **kw) for sc in scenes]
+    unequal = [i for i, (a, b) in enumerate(zip(got, one_by_one)) if not np.array_equal(a, b)]
+    if unequal:
+        raise AssertionError(f"compiled scenes {unequal}: two dispatches in flight differ from "
+                             "the same program run one scene at a time")
+    with disable_compile():
+        want = predict_scenes(model, scenes, **kw)
+    tiles_agree = _tile_agreement(got, want)
+    agree = float(tiles_agree.mean())
+    if agree < AGREE_BF16 or tiles_agree.min() < AGREE_TILE:
+        raise AssertionError(f"compiled scene maps agree {agree} with the eager predictor's, "
+                             f"{tiles_agree.min()} on the worst 512² subtile")
+    ms = _turns(lambda: predict_scenes(model, scenes, **kw), reps=2)
+    tiles = COMPILED_SCENES * (SCENE // IMG) ** 2
+    r = {"first_call_s": first_s, "compile_s": program_seconds(fn.program), "agree_eager": agree,
+         "agree_eager_tile_min": float(tiles_agree.min()),
+         "agree_eager_tile_quartiles": [float(q) for q in
+                                        np.quantile(tiles_agree, [0.25, 0.5, 0.75])],
+         "equal_one_scene_a_dispatch": True,
+         "tiles_per_s": tiles * 1e3 / ms["compiled"],
+         "eager_tiles_per_s": tiles * 1e3 / ms["eager"]}
+    log(f"  scenes: {COMPILED_SCENES} of {SCENE}², chunk bs {SCENE_CHUNK}: maps equal to the "
+        f"same program one scene a dispatch; agree with the eager predictor's {agree:.5f} "
+        f"(per 512² subtile: min {r['agree_eager_tile_min']:.5f}, quartiles "
+        f"{[round(q, 5) for q in r['agree_eager_tile_quartiles']]}); {r['tiles_per_s']:.2f} "
+        f"tiles/s compiled vs {r['eager_tiles_per_s']:.2f} eager (in turns); first call "
+        f"{first_s:.1f} s (compile {r['compile_s']} s)")
+    del model, fn
+    torch.compiler.reset()
+    torch.cuda.empty_cache()
+    return r
+
+
+def _compiled_augment() -> dict:
+    """``augment_batch`` at the training batch (16 × 512² RGBN, mask, lu)
+    as one program: bit-equal to the eager call, kernel 4 once a replay."""
+    import torch
+
+    from deadtrees_tpu_torch.core.compile_opts import disable_compile
+    from deadtrees_tpu_torch.data.augment import _PROGRAM as augment_program
+    from deadtrees_tpu_torch.data.augment import augment_batch, sample_augment_params
+
+    b = _augment_batch_u8()
+    # drawn and uploaded once: the replay's trace holds no host-to-device copy
+    params = {k: v.cuda() for k, v in
+              sample_augment_params(torch.Generator().manual_seed(SEED), TRAIN_BS).items()}
+
+    def call():
+        return augment_batch(None, b["image"], b["mask"], b["lu"], params=params)
+
+    got = call()
+    with disable_compile():
+        want = call()
+    if any(not torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("the compiled augment differs from the eager one")
+    replay = replay_check("augment", call, REPO / "build" / "chip_smoke" /
+                          "trace_compiled_augment.json", {"augment_": 1})
+    ms = _turns(call)
+    r = {"compile_s": program_seconds(augment_program), "ms": ms["compiled"],
+         "eager_ms": ms["eager"], "replay": replay}
+    log(f"  augment_batch, bs {TRAIN_BS}: bit-equal to eager; kernel 4 once a replay; "
+        f"{ms['compiled']:.3f} ms compiled vs {ms['eager']:.3f} eager (host clock, "
+        f"synchronized; parameters drawn and uploaded outside); compile {r['compile_s']} s")
+    return r
+
+
+def phase_compiled(ckpt: Path, card: str, cold: dict, t_script: float) -> dict:
+    """Phase 15 (module docstring): the compiled programs beside the eager
+    path, in turns; ``cold`` holds the warmers' cold compile seconds."""
+    t_phase = time.perf_counter()
+    log(f"phase 15 on {card}: bs {COMPILED_BS} routes, the server, scenes at chunk "
+        f"{SCENE_CHUNK}, the augment program")
+    # the server last: it runs programs in a thread of its own
+    out = {"cold": cold, "augment": _compiled_augment(), "serving": _compiled_serving(ckpt),
+           "scenes": _compiled_scenes(ckpt), "server": _compiled_server(ckpt)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["script_s"] = time.perf_counter() - t_script
+    log(f"phase 15: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2628,7 +3144,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--warm"]:
+        return warm(sys.argv[2])
     t_start = time.perf_counter()
+    from deadtrees_tpu_torch.core.compile_opts import disable_compile
     from deadtrees_tpu_torch.data.tar import NATIVE_FALLBACKS
 
     NATIVE_FALLBACKS.clear()  # phases 8, 13 and 14 read their shards natively
@@ -2640,31 +3159,41 @@ def main() -> int:
     ckpt = workdir / "flagship_b5.ckpt"
     workdir.mkdir(parents=True, exist_ok=True)
     hp, model = build_flagship(ckpt)
-    model = model.cuda().eval()
-    phase_kernels(model, errs)
+    warmers = start_warmers()
+    try:
+        # phases 2-14 run eagerly (module docstring); phase 15 compiles
+        with disable_compile():
+            model = model.cuda().eval()
+            phase_kernels(model, errs)
 
-    fused, plain = phase_slice(ckpt, hp)
-    counts = phase_server(ckpt)
-    tot = phase_timings(model, fused, plain, card)
-    phase_profile(fused, plain, card)
-    del fused
-    errs.update({name: 0.0 for name in (*NHWC_REPLACES, DW)})
-    phase_nhwc_kernels(model, errs)
-    nhwc, nhwc_counts = phase_nhwc_slice(ckpt, hp, plain)
-    nhwc_tot, route_ms = phase_nhwc_timings(ckpt, model, nhwc, plain, card, errs)
-    phase_nhwc_profile(nhwc, card)
-    del nhwc
-    torch.cuda.empty_cache()
-    scenes = phase_scenes(ckpt, hp, plain, route_ms[SCENE_BS]["plain"], card)
-    del plain, model
-    torch.cuda.empty_cache()
-    augment_row = phase_augment(card)
-    train = phase_train(card)
-    augment_row["launches"] = train["launches"]
-    torch.cuda.empty_cache()
-    recipe = phase_recipe(card)
-    torch.cuda.empty_cache()
-    data = phase_data(card, train)
+            fused, plain = phase_slice(ckpt, hp)
+            counts = phase_server(ckpt)
+            tot = phase_timings(model, fused, plain, card)
+            phase_profile(fused, plain, card)
+            del fused
+            errs.update({name: 0.0 for name in (*NHWC_REPLACES, DW)})
+            phase_nhwc_kernels(model, errs)
+            nhwc, nhwc_counts = phase_nhwc_slice(ckpt, hp, plain)
+            nhwc_tot, route_ms = phase_nhwc_timings(ckpt, model, nhwc, plain, card, errs)
+            phase_nhwc_profile(nhwc, card)
+            del nhwc
+            torch.cuda.empty_cache()
+            scenes = phase_scenes(ckpt, hp, plain, route_ms[SCENE_BS]["plain"], card)
+            del plain, model
+            torch.cuda.empty_cache()
+            augment_row = phase_augment(card)
+            train = phase_train(card)
+            augment_row["launches"] = train["launches"]
+            torch.cuda.empty_cache()
+            recipe = phase_recipe(card)
+            torch.cuda.empty_cache()
+            # the warmers' memory is free before phase 14's 74 GiB batch
+            cold = join_warmers(warmers, 1200)
+            data = phase_data(card, train)
+        torch.cuda.empty_cache()
+        compiled = phase_compiled(ckpt, card, cold, t_start)
+    finally:
+        stop_warmers(warmers)
 
     kernels = []
     for name in REPLACES:
@@ -2701,6 +3230,7 @@ def main() -> int:
     print("scenes " + json.dumps(dict(scenes, card=card)))
     print("recipe " + json.dumps(dict(recipe, card=card)))
     print("data " + json.dumps(dict(data, card=card)))
+    print("compiled " + json.dumps(dict(compiled, card=card)))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

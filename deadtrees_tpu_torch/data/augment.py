@@ -13,6 +13,13 @@ differ from JAX's; the probabilities and ranges are the same). On a CUDA
 batch the jitter + normalize runs as the hand-written kernel
 (``ops/augment.py``); on a CPU batch as its plain version. The image comes
 out float32 NCHW, the layout the model reads; masks keep (B, H, W).
+
+:func:`augment_batch` is one compiled program per batch shape (JAX's
+``augment_batch`` jit): the dihedral, kernel 4 (its custom op) with the
+exact image mean, and the mask and ``lu`` transforms. A generator does not
+trace, so the parameters are drawn before the program, in eager code, and
+go in as device tensors, with the channel constants of
+``ops.augment.channel_table``.
 """
 
 from __future__ import annotations
@@ -21,8 +28,13 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from deadtrees_tpu_torch.core.compile_opts import Program
 from deadtrees_tpu_torch.data.config import DATASET_CONFIG
-from deadtrees_tpu_torch.ops.augment import augment_jitter_normalize, color_jitter_u8
+from deadtrees_tpu_torch.ops.augment import (
+    augment_jitter_normalize,
+    channel_table,
+    color_jitter_u8,
+)
 
 
 def sample_augment_params(
@@ -85,6 +97,27 @@ def normalize(
     return (img_f32 - mean) / std
 
 
+def _augment(image_u8, mask, lu, params, chan, train: bool):
+    """The program of :func:`augment_batch`, on device tensors."""
+    c = image_u8.shape[-1]
+    out: Dict[str, torch.Tensor] = {}
+    if not train:
+        x = (image_u8.float() - chan[:c]) / chan[c:]
+        out["image"] = x.permute(0, 3, 1, 2).contiguous()
+    else:
+        geo = (params["flip_h"], params["flip_v"], params["rot_k"])
+        img = _apply_dihedral(image_u8, *geo)
+        out["image"] = augment_jitter_normalize(img, params["alpha"], params["beta"], (), (),
+                                                chan=chan)
+    for name, t in (("mask", mask), ("lu", lu)):
+        if t is not None:
+            out[name] = (_apply_dihedral(t, *geo) if train else t).long()
+    return out
+
+
+_PROGRAM = Program(_augment, None)
+
+
 def augment_batch(
     generator: Optional[torch.Generator],
     image_u8: torch.Tensor,  # (B, H, W, C) uint8
@@ -101,22 +134,19 @@ def augment_batch(
     'mask'/'lu' as int64 (B, H, W).
 
     ``params`` (the dict :func:`sample_augment_params` returns) fixes the
-    augmentation instead of drawing it from ``generator``."""
+    augmentation instead of drawing it from ``generator``. The draw and the
+    parameters' copy to the batch's device happen here; the rest is one
+    program (module docstring)."""
     c = image_u8.shape[-1]
-    mean = tuple(mean)[:c]
-    std = tuple(std)[:c]
-    out: Dict[str, torch.Tensor] = {}
-    if not train:
-        out["image"] = normalize(image_u8.float(), mean, std).permute(0, 3, 1, 2).contiguous()
-    else:
+    dev = image_u8.device
+    if len(mean) < c or len(std) < c:
+        raise ValueError(f"mean/std give fewer than {c} channels")
+    chan = channel_table(mean, std, c, dev)
+    if train:
         if params is None:
             params = sample_augment_params(generator, image_u8.shape[0])
-        geo = (params["flip_h"], params["flip_v"], params["rot_k"])
-        img = _apply_dihedral(image_u8, *geo)
-        out["image"] = augment_jitter_normalize(
-            img, params["alpha"].to(img.device), params["beta"].to(img.device), mean, std
-        )
-    for name, t in (("mask", mask), ("lu", lu)):
-        if t is not None:
-            out[name] = (_apply_dihedral(t, *geo) if train else t).long()
-    return out
+        params = {k: params[k].to(dev, non_blocking=True)
+                  for k in ("flip_h", "flip_v", "rot_k", "alpha", "beta")}
+    else:
+        params = None
+    return _PROGRAM(image_u8, mask, lu, params, chan, train)

@@ -88,6 +88,11 @@ def open_shard(url):
             exhausted = True
         finally:
             if exhausted:
+                # the archive's end marker comes before the stream's end (tar
+                # pads to its record size): read the rest, or a command still
+                # writing it dies of SIGPIPE (exit 141) on a clean read
+                while proc.stdout.read(1 << 16):
+                    pass
                 proc.stdout.close()
                 rc = proc.wait()
                 if rc != 0:

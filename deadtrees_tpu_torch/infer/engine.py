@@ -13,6 +13,18 @@ engine is ported (the fused decoder in both layouts, w8 / w8a8
 quantization, TTA) with its validation. :class:`EnsembleInference` is the
 odd-N majority vote over checkpoints; the exported engine is not ported
 yet (ROADMAP.md).
+
+Each route is one compiled program per input shape
+(``core.compile_opts.Program``), as the JAX engine jits each: uint8 in,
+normalize, forward, argmax, uint8 out; w8a8 has a calibrate and a predict
+program, the ensemble a vote program. On CUDA, w8a8, TTA and the vote run
+eagerly unless ``DEADTREES_COMPILE_OPTS`` is set (``by_default=False``:
+their compiled form is not yet checked on the card). ``"auto"``'s cut at
+:data:`FUSED_MAX_BATCH` is a Python branch on the batch size, which is
+static in a program: each batch size traces one side of it. On the card a
+program replays as a CUDA graph, which overwrites its output at the next
+replay: :meth:`TorchInference.predict` returns a copy, and :meth:`run`
+copies it to the host.
 """
 
 from __future__ import annotations
@@ -24,9 +36,10 @@ import numpy as np
 import torch
 
 from deadtrees_tpu_torch.core.checkpoint import load_model
+from deadtrees_tpu_torch.core.compile_opts import Program
 from deadtrees_tpu_torch.models import state_dict_from_variables
-from deadtrees_tpu_torch.data.augment import normalize
 from deadtrees_tpu_torch.data.config import DATASET_CONFIG
+from deadtrees_tpu_torch.ops.augment import channel_constants
 
 # Batches of at most this many images take the fused decoder under
 # fused_decoder="auto"; larger ones take the plain model (the JAX
@@ -48,6 +61,34 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
             "device='cpu' is passed"
         )
     return device
+
+
+def normalizer(mean: Sequence[float], std: Sequence[float], device: torch.device):
+    """``normalize`` of ``data/augment.py`` with its constants made once, on
+    ``device``: a program then reads them as static inputs and makes no
+    host-to-device copy. Returns ``f(img_f32 NHWC) -> (x - 255 m) / (255 s)``."""
+    m255, s255 = channel_constants(mean, std, len(mean), device)
+    for t in (m255, s255):
+        torch._dynamo.mark_static_address(t)
+
+    def normalize(img_f32: torch.Tensor) -> torch.Tensor:
+        return (img_f32 - m255) / s255
+
+    return normalize
+
+
+def static_tensors(tree) -> None:
+    """Mark every tensor of ``tree`` (dicts, lists, tuples) as a static
+    input of the programs that read it: a CUDA graph then reads it where it
+    lies instead of copying it in before each replay."""
+    if isinstance(tree, torch.Tensor):
+        torch._dynamo.mark_static_address(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            static_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            static_tensors(v)
 
 
 def _sniff_in_channels(params, hparams: Optional[dict] = None) -> int:
@@ -143,6 +184,12 @@ class TorchInference(Inference):
             from deadtrees_tpu_torch.ops.fused_decoder import fold_effunetpp_decoder
 
             self.folded = fold_effunetpp_decoder(self.model)
+            static_tensors(self.folded)
+        self._normalize = normalizer(self.mean, self.std, self.device)
+        # w8a8 and TTA compile on CUDA only when asked for (core/compile_opts.py)
+        self._program = Program(self._predict, self.device,
+                                by_default=not (self.tta_views or self.quantized == "w8a8"))
+        self._calibrate = Program(self._calibrate_w8a8, self.device, by_default=False)
 
     def _round_trip_weights(self) -> None:
         """int8 as a storage format: quantize the kernels once, serve their
@@ -175,32 +222,34 @@ class TorchInference(Inference):
         logits = self.model(img_nhwc.permute(0, 3, 1, 2).contiguous())
         return logits.permute(0, 2, 3, 1)
 
-    def _predict_w8a8(self, img: torch.Tensor) -> torch.Tensor:
-        from deadtrees_tpu_torch.infer.act_quant import calibrate_decoder, make_int8_block_fn
+    def _calibrate_w8a8(self, img_u8: torch.Tensor):
+        """w8a8's calibrate program: the decoder's activation scales from
+        the batch (the JAX engine's ``_calibrate``)."""
+        from deadtrees_tpu_torch.infer.act_quant import calibrate_decoder
+        from deadtrees_tpu_torch.ops.fused_decoder import encode_features_nhwc
+
+        img = self._normalize(img_u8.float()).permute(0, 3, 1, 2).contiguous()
+        feats = encode_features_nhwc(self.model, img)
+        return calibrate_decoder(feats, self.folded, self.model.decoder_channels)
+
+    def _predict_w8a8(self, img: torch.Tensor, scales) -> torch.Tensor:
+        from deadtrees_tpu_torch.infer.act_quant import make_int8_block_fn
         from deadtrees_tpu_torch.ops.fused_decoder import (
             apply_head,
             encode_features_nhwc,
             fused_decoder_nhwc,
         )
 
-        dc = self.model.decoder_channels
-        if self._scales is None:
-            # post-training calibration on a slice of the first batch
-            feats = encode_features_nhwc(self.model, img[:32])
-            self._scales = calibrate_decoder(feats, self.folded, dc)
-            del feats
         feats = encode_features_nhwc(self.model, img)
         decoded = fused_decoder_nhwc(
-            feats, self.folded, dc,
-            block_fn=make_int8_block_fn(self._scales, sites=self.quant_sites),
+            feats, self.folded, self.model.decoder_channels,
+            block_fn=make_int8_block_fn(scales, sites=self.quant_sites),
         )
         return apply_head(self.model, decoded.permute(0, 3, 1, 2)).argmax(1)
 
-    @torch.no_grad()
-    def predict(self, img_u8: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) uint8 tensor on the engine's device → (B, H, W)
-        uint8 class map on the device."""
-        img_nhwc = normalize(img_u8.float(), self.mean, self.std)
+    def _predict(self, img_u8: torch.Tensor, scales=None) -> torch.Tensor:
+        """The route's program: (B, H, W, C) uint8 → (B, H, W) uint8."""
+        img_nhwc = self._normalize(img_u8.float())
         if self.tta_views:
             from deadtrees_tpu_torch.infer.tta import make_tta_fn
 
@@ -208,7 +257,7 @@ class TorchInference(Inference):
             return probs.argmax(-1).to(torch.uint8)
         img = img_nhwc.permute(0, 3, 1, 2).contiguous()
         if self.quantized == "w8a8":
-            return self._predict_w8a8(img).to(torch.uint8)
+            return self._predict_w8a8(img, scales).to(torch.uint8)
         if self.uses_fused(img.shape[0]):
             from deadtrees_tpu_torch.ops.fused_decoder import fused_forward
 
@@ -216,6 +265,20 @@ class TorchInference(Inference):
             return logits.argmax(1).to(torch.uint8)
         probs = torch.softmax(self.model(img), dim=1)
         return probs.argmax(1).to(torch.uint8)
+
+    @torch.no_grad()
+    def predict(self, img_u8: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) uint8 tensor on the engine's device → (B, H, W)
+        uint8 class map on the device, through the route's program. w8a8
+        calibrates its scales on ``img_u8[:32]`` of the first call (its
+        calibrate program), as the JAX engine does."""
+        if self.quantized == "w8a8":
+            if self._scales is None:
+                # post-training calibration on a slice of the first batch
+                self._scales = self._calibrate(img_u8[:32])
+                static_tensors(self._scales)
+            return self._program(img_u8, self._scales)
+        return self._program(img_u8)
 
     def run(self, batch: np.ndarray) -> np.ndarray:
         """(B, H, W, C) uint8 → (B, H, W) uint8 class map."""
@@ -268,6 +331,8 @@ class EnsembleInference(Inference):
             self.model = self.models[0]
             self.mean = tuple(mean)[: self.in_channels]
             self.std = tuple(std)[: self.in_channels]
+            self._normalize = normalizer(self.mean, self.std, self.device)
+            self._program = Program(self._vote, self.device, by_default=False)
         else:
             del members  # don't hold N models across the re-load
             self._members = [
@@ -277,9 +342,9 @@ class EnsembleInference(Inference):
             self.model = self._members[0].model
             self.in_channels = max(m.in_channels for m in self._members)
 
-    @torch.no_grad()
     def _vote(self, img_u8: torch.Tensor) -> torch.Tensor:
-        img = normalize(img_u8.float(), self.mean, self.std).permute(0, 3, 1, 2).contiguous()
+        """The vote's program: every member's argmax, summed one-hot."""
+        img = self._normalize(img_u8.float()).permute(0, 3, 1, 2).contiguous()
         votes = None
         for model in self.models:
             one_hot = torch.nn.functional.one_hot(model(img).argmax(1), self.num_classes)
@@ -293,7 +358,8 @@ class EnsembleInference(Inference):
             batch = batch[..., : self.in_channels]
         if self.homogeneous:
             img = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.uint8))
-            return self._vote(img.to(self.device)).cpu().numpy()
+            with torch.no_grad():
+                return self._program(img.to(self.device)).cpu().numpy()
         votes = np.zeros(batch.shape[:3] + (self.num_classes,), np.int32)
         classes = np.arange(self.num_classes)
         for member in self._members:

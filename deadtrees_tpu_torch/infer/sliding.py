@@ -13,6 +13,14 @@ chunk's; every chunk has one shape. Invalid (padding) subtiles come out
 zero. ``predict_scenes`` keeps at most two dispatches in flight, so one
 group's host work (Tiler pad copies, staging, 2-bit unpack) overlaps the
 next group's forward on the device.
+
+Each chunk (normalize, forward, argmax) is one compiled program at the
+chunk's shape (``core.compile_opts.Program``, the JAX predictor's jit);
+the uploads and the block reshuffles around it stay outside. Under
+CUDA-graph replay a program's output is overwritten by its next replay,
+so each chunk's classes are copied into ``preds`` before the next chunk
+runs; the map that leaves the predictor is a tensor of its own, which the
+side stream of ``predict_scenes`` copies to the host.
 """
 
 from __future__ import annotations
@@ -22,10 +30,10 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from deadtrees_tpu_torch.data.augment import normalize
+from deadtrees_tpu_torch.core.compile_opts import Program
 from deadtrees_tpu_torch.data.config import DATASET_CONFIG
 from deadtrees_tpu_torch.infer.blocks import make_blocks_nhwc, unmake_blocks_nhwc
-from deadtrees_tpu_torch.infer.engine import resolve_device
+from deadtrees_tpu_torch.infer.engine import normalizer, resolve_device
 from deadtrees_tpu_torch.infer.packing import pack2, unpack2
 from deadtrees_tpu_torch.infer.tiler import Tiler
 
@@ -80,6 +88,17 @@ def make_scene_predictor(
         from deadtrees_tpu_torch.infer.tta import make_tta_fn
 
         tta_fn = make_tta_fn(logits_nhwc, tta)
+    normalizers = {}  # one per channel count
+
+    def chunk_classes(chunk_u8: torch.Tensor, normalize) -> torch.Tensor:
+        """The chunk program: (bs, sub, sub, C) uint8 → (bs, sub, sub) classes."""
+        img = normalize(chunk_u8.float())
+        scores = tta_fn(img) if tta else logits_nhwc(img)
+        return scores.argmax(-1).to(torch.uint8)
+
+    # with TTA (eight forwards in one graph) the chunk compiles on CUDA only
+    # when asked for (core/compile_opts.py)
+    program = Program(chunk_classes, device, by_default=not tta)
 
     @torch.no_grad()
     def predict(scene_u8, valid):
@@ -89,7 +108,8 @@ def make_scene_predictor(
         if squeeze:
             scene, valid = scene[None], valid[None]
         ns, th, tw, c = scene.shape
-        m, s = tuple(mean)[:c], tuple(std)[:c]
+        if c not in normalizers:
+            normalizers[c] = normalizer(tuple(mean)[:c], tuple(std)[:c], device)
 
         blocks = torch.cat([make_blocks_nhwc(sc, subtile) for sc in scene])
         n = blocks.shape[0] // ns  # subtiles per scene
@@ -98,12 +118,7 @@ def make_scene_predictor(
             blocks = torch.cat([blocks, blocks.new_zeros((pad,) + blocks.shape[1:])])
         preds = torch.empty(blocks.shape[:3], dtype=torch.uint8, device=device)
         for i in range(0, blocks.shape[0], batch_size):
-            img = normalize(blocks[i:i + batch_size].float(), m, s)
-            if tta:
-                scores = tta_fn(img)
-            else:
-                scores = logits_nhwc(img)
-            preds[i:i + batch_size] = scores.argmax(-1)
+            preds[i:i + batch_size] = program(blocks[i:i + batch_size], normalizers[c])
         del blocks
         preds = preds[: ns * n] * valid.reshape(-1, 1, 1).to(torch.uint8)
         out = torch.stack([
@@ -113,6 +128,7 @@ def make_scene_predictor(
             out = pack2(out)
         return out[0] if squeeze else out
 
+    predict.program = program
     return predict
 
 

@@ -8,7 +8,10 @@ Counterpart of ``deadtrees_tpu.losses.metrics``:
   NaN for empty ground truth, nan-mean);
 - :func:`confusion_matrix` / :func:`masked_confusion_matrix`:
   torchmetrics' confusion matrix, optionally row-normalized, and the one
-  restricted to the forest land-use layer.
+  restricted to the forest land-use layer. Both count with
+  :func:`bin_counts`, whose output length is fixed (JAX's ``bincount``
+  with ``length``), so they trace into a compiled program, where
+  ``torch.bincount``'s data-dependent length would break the graph.
 
 Probabilities and one-hot tensors are (B, K, H, W).
 """
@@ -81,6 +84,15 @@ def dice_score(
     return torch.nanmean(dice)
 
 
+def bin_counts(idx: torch.Tensor, length: int) -> torch.Tensor:
+    """``torch.bincount(idx, minlength=length)`` for ``idx`` in
+    ``[0, length)``, as int64 of exactly ``length`` bins: a fixed-length
+    ``scatter_add`` of ones, the same integers."""
+    idx = idx.reshape(-1).long()
+    return torch.zeros(length, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def _normalize_rows(cm: torch.Tensor, normalize: Optional[str]) -> torch.Tensor:
     if normalize is None:
         return cm
@@ -101,7 +113,7 @@ def confusion_matrix(
     ``cm[i, j]`` counts pixels of true class i predicted as class j.
     ``normalize='true'`` row-normalizes; rows without support are zero."""
     idx = target.reshape(-1).long() * num_classes + pred.reshape(-1).long()
-    cm = torch.bincount(idx, minlength=num_classes * num_classes)
+    cm = bin_counts(idx, num_classes * num_classes)
     return _normalize_rows(cm.reshape(num_classes, num_classes), normalize)
 
 
@@ -118,5 +130,5 @@ def masked_confusion_matrix(
     idx = target.reshape(-1).long() * num_classes + pred.reshape(-1).long()
     scratch = num_classes * num_classes
     idx = torch.where(mask.reshape(-1) == 1, idx, torch.full_like(idx, scratch))
-    cm = torch.bincount(idx, minlength=scratch + 1)[:-1]
+    cm = bin_counts(idx, scratch + 1)[:-1]
     return _normalize_rows(cm.reshape(num_classes, num_classes), normalize)

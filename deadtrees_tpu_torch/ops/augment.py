@@ -17,12 +17,19 @@ plain PyTorch version (:func:`augment_jitter_normalize_reference`). Both
 round the same way (each product and the sum rounded to float32, an IEEE
 division), so on the same inputs they agree bit for bit. The wrapper
 keeps a launch count in ``ops.LAUNCHES["augment_jitter_normalize"]``.
+
+The kernel is the ``torch.library`` custom op
+``deadtrees::augment_jitter_normalize`` (the kernel on CUDA, the plain
+version on the CPU), opaque to the compiler. Its channel constants come
+as a tensor (:func:`channel_table`, built once per statistics and device),
+so that a compiled program makes no host-to-device copy.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -48,6 +55,21 @@ def channel_constants(
     m = torch.as_tensor(tuple(mean)[:channels], dtype=torch.float32, device=device)
     s = torch.as_tensor(tuple(std)[:channels], dtype=torch.float32, device=device)
     return m * 255.0, s * 255.0
+
+
+@functools.lru_cache(maxsize=16)
+def _channel_table(mean: Tuple[float, ...], std: Tuple[float, ...], channels: int,
+                   device: torch.device) -> torch.Tensor:
+    return torch.cat(channel_constants(mean, std, channels, device)).contiguous()
+
+
+def channel_table(mean: Sequence[float], std: Sequence[float], channels: int,
+                  device) -> torch.Tensor:
+    """(2·C,) float32: 255·m_c then 255·s_c (:func:`channel_constants`), the
+    kernel's ``chan`` operand, built once per statistics, channel count and
+    device and shared by every later call."""
+    return _channel_table(tuple(mean)[:channels], tuple(std)[:channels], channels,
+                          torch.device(device))
 
 
 def color_jitter_u8(
@@ -101,11 +123,16 @@ def augment_jitter_normalize(
     beta: torch.Tensor,  # (B,)
     mean: Sequence[float],
     std: Sequence[float],
+    chan: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused per-sample jitter + normalize; returns (B, C, H, W) float32.
 
     On a CUDA tensor this launches the kernel (or raises); on a CPU tensor
-    it runs :func:`augment_jitter_normalize_reference`."""
+    it runs the plain version; both through the custom op. ``chan`` is
+    :func:`channel_table` of ``mean`` and ``std`` on the batch's device,
+    built here when the caller does not pass it (a compiled caller passes
+    it, so that the program makes no host-to-device copy). The image mean
+    is computed ahead of the op (:func:`image_mean`)."""
     if img_u8.dim() != 4 or img_u8.dtype != torch.uint8:
         raise ValueError(
             f"expected a (B, H, W, C) uint8 batch, got {tuple(img_u8.shape)} {img_u8.dtype}"
@@ -113,22 +140,43 @@ def augment_jitter_normalize(
     bsz, hh, ww, c = img_u8.shape
     if alpha.shape != (bsz,) or beta.shape != (bsz,):
         raise ValueError(f"alpha and beta must have shape ({bsz},)")
-    if len(mean) < c or len(std) < c:
+    if chan is None and (len(mean) < c or len(std) < c):
         raise ValueError(f"mean/std give fewer than {c} channels")
-    if img_u8.device.type == "cpu":
-        return augment_jitter_normalize_reference(img_u8, alpha, beta, mean, std)
-    if img_u8.device.type != "cuda":
+    if img_u8.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {img_u8.device}")
     if bsz > 65535 or hh * ww >= 2**31 // max(c, 1):
         raise ValueError(f"batch {tuple(img_u8.shape)} exceeds the kernel's grid")
     dev = img_u8.device
-    img = img_u8.contiguous()
+    if chan is None:
+        chan = channel_table(mean, std, c, dev)
+    if tuple(chan.shape) != (2 * c,):
+        raise ValueError(f"chan has shape {tuple(chan.shape)}, expected ({2 * c},)")
+    a = alpha.to(dev, torch.float32)
+    b = beta.to(dev, torch.float32)
+    return torch.ops.deadtrees.augment_jitter_normalize(img_u8, a, b, image_mean(img_u8), chan)
+
+
+@torch.library.custom_op("deadtrees::augment_jitter_normalize", mutates_args=())
+def _augment_op(img: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                img_mean: torch.Tensor, chan: torch.Tensor) -> torch.Tensor:
+    """Kernel 4 (the kernel on CUDA, the plain version on the CPU)."""
+    if img.device.type == "cpu":
+        c = img.shape[-1]
+        x = color_jitter_u8(img, alpha, beta, img_mean)
+        return ((x - chan[:c]) / chan[c:]).permute(0, 3, 1, 2).contiguous()
+    if img.device.type != "cuda":
+        raise ValueError(f"no kernel for device {img.device}")
+    img = img.contiguous()
     if img.data_ptr() % 16:  # the vector path loads 16 bytes at a time
         img = img.clone()
-    a = alpha.to(dev, torch.float32).contiguous()
-    b = beta.to(dev, torch.float32).contiguous()
-    chan = torch.cat(channel_constants(mean, std, c, dev)).contiguous()
-    return launch(img, a, b, image_mean(img), chan)
+    return launch(img, alpha.contiguous(), beta.contiguous(), img_mean.contiguous(),
+                  chan.contiguous())
+
+
+@_augment_op.register_fake
+def _(img, alpha, beta, img_mean, chan):
+    bsz, hh, ww, c = img.shape
+    return img.new_empty((bsz, c, hh, ww), dtype=torch.float32)
 
 
 def launch(img, alpha, beta, img_mean, chan) -> torch.Tensor:

@@ -21,7 +21,9 @@ runtime once per plan, times the card's SM count), up to the tiles.
 
 The plain PyTorch version of the kernel is :func:`depthwise_conv2d_reference`
 (the k² shifted multiply-adds in float32, the JAX kernel's own
-arithmetic).
+arithmetic). The kernel is the ``torch.library`` custom op
+``deadtrees::depthwise_conv2d`` (the kernel on CUDA, the plain version on
+the CPU), opaque to the compiler.
 """
 
 from __future__ import annotations
@@ -209,9 +211,23 @@ def _blocks_per_sm(device: int, bf16: bool, vector: bool, k: int, strides: int, 
     return max(per_sm.value, 1)
 
 
-def _launch(x: torch.Tensor, kernel: torch.Tensor, k: int, strides: int) -> torch.Tensor:
+@torch.library.custom_op("deadtrees::depthwise_conv2d", mutates_args=())
+def _depthwise_op(x: torch.Tensor, kernel: torch.Tensor, strides: int) -> torch.Tensor:
+    """Kernel 5 (the kernel on CUDA, the plain version on the CPU)."""
+    if x.device.type == "cpu":
+        return depthwise_conv2d_reference(x, kernel, strides=strides)
     if x.device.type != "cuda":
-        raise ValueError(f"force='cuda': no kernel for device {x.device}")
+        raise ValueError(f"no kernel for device {x.device}")
+    return _launch(x, kernel, kernel.shape[0], strides)
+
+
+@_depthwise_op.register_fake
+def _(x, kernel, strides):
+    bsz, hh, ww, c = x.shape
+    return x.new_empty((bsz, (hh - 1) // strides + 1, (ww - 1) // strides + 1, c))
+
+
+def _launch(x: torch.Tensor, kernel: torch.Tensor, k: int, strides: int) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (NHWC)")
     if kernel.device != x.device:
@@ -259,7 +275,9 @@ def depthwise_conv2d(
         raise ValueError(f"force={force!r}; expected one of {FORCES}")
     k = _check(x, kernel, strides)
     if force == "cuda":
-        return _launch(x, kernel, k, strides)
+        if x.device.type != "cuda":
+            raise ValueError(f"force='cuda': no kernel for device {x.device}")
+        return torch.ops.deadtrees.depthwise_conv2d(x, kernel, strides)
     w = kernel.to(x.dtype).permute(3, 2, 0, 1)  # (C, 1, k, k)
     out = F.conv2d(x.permute(0, 3, 1, 2), w, stride=strides, padding=k // 2,
                    groups=x.shape[-1])

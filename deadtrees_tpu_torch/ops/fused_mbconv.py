@@ -14,9 +14,20 @@ built at first CUDA use by ``ops/_build.py``; for bf16 x both run their
            out  = scse·W2 + b2  (+ x·Wsk + bsk, or x, or nothing)
 
 The wrapper launches the kernels for a CUDA tensor and takes the plain
-PyTorch version (:func:`fused_inverted_residual_chw_reference`) only for a
-CPU tensor; any other device, dtype or shape it cannot take raises. Each
-kernel keeps a launch count in :data:`LAUNCHES`.
+PyTorch version (:func:`fused_inverted_residual_chw_reference`, pass by
+pass) only for a CPU tensor; any other device, dtype or shape it cannot
+take raises. Each kernel keeps a launch count in :data:`LAUNCHES`.
+
+Each pass is a ``torch.library`` custom op (``deadtrees::chw_pass1``,
+``deadtrees::chw_pass2``; kernel 3's pair is
+``deadtrees::fused_inverted_residual_pass1`` / ``_pass2`` in
+``ops/fused_cell.py``), so a compiled program calls the kernel as one
+opaque op and never traces into its plain version. Its schema takes the
+folded parameters flat (:func:`flat`), as a list of optional tensors; the
+op rebuilds :class:`FoldedBlockParams` inside. Its ``register_fake``
+states the output shapes and dtypes: psum has one row per output tile of
+:func:`chw_pass1_tile` on CUDA and one row on the CPU, as the plain
+version sums the whole image.
 
 BatchNorms are folded into the adjacent convs once, on load
 (:func:`fold_inverted_residual`). The folded weights keep the JAX
@@ -31,7 +42,7 @@ NHWC kernel pair of ``ops/fused_cell.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +81,11 @@ class FoldedBlockParams(NamedTuple):
     wsk_packed: Optional[torch.Tensor] = None  # bf16, pack_w1(wsk), or None
     sse_packed: Optional[torch.Tensor] = None  # bf16, pack_sse(sse_w)
     w1_packed3: Optional[torch.Tensor] = None  # bf16, pack_w1(w1, terms=3)
+
+
+def flat(fp: FoldedBlockParams) -> List[Optional[torch.Tensor]]:
+    """``fp`` as the flat tensor list of the custom ops' schema."""
+    return list(fp)
 
 
 # the tensor-core products' blocking (csrc/tc_expand.cuh kCmb, kKc)
@@ -292,14 +308,40 @@ _I = ctypes.c_int
 _lib = None
 
 
+def chw_pass1_tile(ksize: int, x_dtype: torch.dtype) -> Tuple[int, int]:
+    """(rows, columns) of kernel 1's pass-1 output tile: 8 × 32 for
+    bfloat16 x (the tensor-core kernel), 14 × 14 (k = 3) or 12 × 12 (k =
+    5) for float32 x. ``csrc/fused_ir_chw.cu`` reports the same
+    (``fused_ir_chw_tile_size``), checked when the library is bound."""
+    if x_dtype == torch.bfloat16:
+        return 8, 32
+    side = 16 - 2 * (ksize // 2)
+    return side, side
+
+
+def chw_pass1_tiles(hh: int, ww: int, ksize: int, x_dtype: torch.dtype) -> int:
+    """The pass 1's output tiles on an H × W image: psum's rows on CUDA."""
+    th, tw = chw_pass1_tile(ksize, x_dtype)
+    return -(-hh // th) * -(-ww // tw)
+
+
 def bind_kernels(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a build of ``csrc/fused_ir_chw.cu``."""
+    """Declare the C interface of a build of ``csrc/fused_ir_chw.cu`` and
+    check that its pass-1 tiles are :func:`chw_pass1_tile`'s."""
     lib.fused_ir_chw_tile_size.argtypes = [_I, _I, _I]
     lib.fused_ir_chw_tile_size.restype = _I
     lib.fused_ir_chw_pass1.argtypes = [_P] * 8 + [_I] * 9 + [_P]
     lib.fused_ir_chw_pass1.restype = _I
     lib.fused_ir_chw_pass2.argtypes = [_P] * 13 + [_I] * 8 + [_P]
     lib.fused_ir_chw_pass2.restype = _I
+    for ksize in (3, 5):
+        for dtype in (torch.float32, torch.bfloat16):
+            want = chw_pass1_tile(ksize, dtype)
+            got = tuple(lib.fused_ir_chw_tile_size(ksize, int(dtype == torch.bfloat16), axis)
+                        for axis in (0, 1))
+            if got != want:
+                raise RuntimeError(f"fused_ir_chw.cu tiles k{ksize} {dtype} as {got}, "
+                                   f"chw_pass1_tile says {want}")
     return lib
 
 
@@ -351,6 +393,12 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _on_a_kernel_device(x: torch.Tensor) -> None:
+    """CPU (the plain version) and CUDA (the kernel) are the ops' devices."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+
+
 def pass1_staging(x: torch.Tensor) -> Optional[str]:
     """How the tensor-core pass 1 stages bf16 x: ``"tma"`` (W % 8 == 0 and
     x 16-byte aligned: TMA needs 16-byte row strides) or ``"plain"``;
@@ -360,40 +408,68 @@ def pass1_staging(x: torch.Tensor) -> Optional[str]:
     return "tma" if x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 else "plain"
 
 
-def chw_pass1(x, fp, *, activation="hswish", ksize=3):
-    """Pass 1: (h in x's dtype, (B, n_tiles, C_mid) float32 partial sums).
-    A CUDA tensor launches the kernel; a CPU tensor takes the plain
-    version. bf16 x runs the tensor-core kernel on ``fp.w1_packed``
-    (computed here when ``fp`` lacks it), staged by TMA when W % 8 == 0 and
-    x is 16-byte aligned, else by plain loads; float32 x runs the float32
-    kernel."""
-    if x.device.type == "cpu":
-        return chw_pass1_reference(x, fp, activation=activation, ksize=ksize)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+def _launch_chw_pass1(x, fp, activation, ksize):
+    # The TMA descriptors are encoded on the host from the tensors'
+    # addresses and passed to the kernel by value (csrc/tc_expand.cuh): a
+    # CUDA graph bakes them in at capture, which is right only while its
+    # buffers stay where they were captured, as the CUDA-graph runtime's
+    # static buffers do.
     _cuda_check(x, fp)
     lib = _kernels()
     bsz, cin, hh, ww = x.shape
     cm = fp.w1.shape[1]
     bf16 = x.dtype == torch.bfloat16
-    packed = None
-    if bf16:
-        packed = fp.w1_packed if fp.w1_packed is not None else pack_w1(fp.w1)
+    if bf16 and fp.w1_packed is None:
+        raise ValueError("bf16 x needs the folded w1_packed (pack_w1(w1))")
     tma = pass1_staging(x) == "tma"
-    n_tiles = (-(-hh // lib.fused_ir_chw_tile_size(ksize, int(bf16), 0))
-               * -(-ww // lib.fused_ir_chw_tile_size(ksize, int(bf16), 1)))
     h = torch.empty((bsz, cm, hh, ww), dtype=x.dtype, device=x.device)
-    psum = torch.empty((bsz, n_tiles, cm), dtype=torch.float32, device=x.device)
+    psum = torch.empty((bsz, chw_pass1_tiles(hh, ww, ksize, x.dtype), cm),
+                       dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         status = lib.fused_ir_chw_pass1(
-            x.data_ptr(), fp.w1.data_ptr(), _ptr(packed), fp.b1.data_ptr(),
-            fp.dw.data_ptr(), fp.b_dw.data_ptr(), h.data_ptr(), psum.data_ptr(),
-            bsz, cin, cm, hh, ww, ksize, ACTIVATIONS.index(activation), int(bf16),
-            int(tma), torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), fp.w1.data_ptr(), _ptr(fp.w1_packed if bf16 else None),
+            fp.b1.data_ptr(), fp.dw.data_ptr(), fp.b_dw.data_ptr(), h.data_ptr(),
+            psum.data_ptr(), bsz, cin, cm, hh, ww, ksize, ACTIVATIONS.index(activation),
+            int(bf16), int(tma), torch.cuda.current_stream().cuda_stream,
         )
     _check_status(status, "fused_ir_chw_pass1")
     LAUNCHES["fused_ir_chw_pass1"] += 1
     return h, psum
+
+
+@torch.library.custom_op("deadtrees::chw_pass1", mutates_args=())
+def _chw_pass1_op(x: torch.Tensor, fp: Sequence[Optional[torch.Tensor]], activation: str,
+                  ksize: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 1's pass 1 (the kernel on CUDA, the plain version on the CPU)."""
+    fp = FoldedBlockParams(*fp)
+    if x.device.type == "cpu":
+        return chw_pass1_reference(x, fp, activation=activation, ksize=ksize)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _launch_chw_pass1(x, fp, activation, ksize)
+
+
+@_chw_pass1_op.register_fake
+def _(x, fp, activation, ksize):
+    bsz, _, hh, ww = x.shape
+    cm = FoldedBlockParams(*fp).w1.shape[1]
+    tiles = 1 if x.device.type == "cpu" else chw_pass1_tiles(hh, ww, ksize, x.dtype)
+    return (x.new_empty((bsz, cm, hh, ww)),
+            x.new_empty((bsz, tiles, cm), dtype=torch.float32))
+
+
+def chw_pass1(x, fp, *, activation="hswish", ksize=3):
+    """Pass 1: (h in x's dtype, (B, n_tiles, C_mid) float32 partial sums;
+    one row of whole-image sums on the CPU). A CUDA tensor launches the
+    kernel; a CPU tensor takes the plain version; both through the
+    ``deadtrees::chw_pass1`` op. bf16 x runs the tensor-core kernel on
+    ``fp.w1_packed`` (computed here, ahead of the op, when ``fp`` lacks
+    it), staged by TMA when W % 8 == 0 and x is 16-byte aligned, else by
+    plain loads; float32 x runs the float32 kernel."""
+    _on_a_kernel_device(x)
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16 and fp.w1_packed is None:
+        fp = fp._replace(w1_packed=pack_w1(fp.w1))
+    return torch.ops.deadtrees.chw_pass1(x, flat(fp), activation, ksize)
 
 
 def pass2_staging(h: torch.Tensor, x: torch.Tensor, skip: str) -> Optional[str]:
@@ -419,33 +495,44 @@ def pass2_operands(fp: FoldedBlockParams, skip: str):
     return w2p, ssep, wskp
 
 
-def chw_pass2(h, x, gate, fp, *, skip="auto"):
-    """Pass 2: the block output in x's dtype. A CUDA tensor launches the
-    kernel; a CPU tensor takes the plain version. bf16 x runs the
-    tensor-core kernel on the packed W2, w_sse and Wsk
-    (:func:`pass2_operands`), staged by TMA or plain loads
-    (:func:`pass2_staging`); float32 x runs the float32 kernel."""
-    if x.device.type == "cpu":
-        return chw_pass2_reference(h, x, gate, fp, skip=skip)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    skip = _resolve_skip(fp, skip)
+def with_pass2_operands(fp: FoldedBlockParams, x: torch.Tensor, skip: str) -> FoldedBlockParams:
+    """``fp`` with the packed pass-2 operands a bf16 CUDA x needs filled in
+    (:func:`pass2_operands`); as it is otherwise. The ops run ahead of this
+    so that nothing is packed inside a captured call."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        return fp
+    w2p, ssep, wskp = pass2_operands(fp, skip)
+    return fp._replace(w2_packed=w2p, sse_packed=ssep,
+                       wsk_packed=wskp if wskp is not None else fp.wsk_packed)
+
+
+def _check_pass2_inputs(h, x, gate, cm, h_shape, h_dtypes):
+    if (tuple(h.shape) != h_shape or h.dtype not in h_dtypes or not h.is_contiguous()
+            or h.device != x.device):
+        raise ValueError("h must be the contiguous pass-1 output for x")
+    if (tuple(gate.shape) != (x.shape[0], cm) or gate.dtype != torch.float32
+            or not gate.is_contiguous()):
+        raise ValueError("gate must be a contiguous (B, C_mid) float32 tensor")
+
+
+def _launch_chw_pass2(h, x, gate, fp, skip):
+    # the TMA descriptors rely on static buffers under a CUDA graph, as in
+    # _launch_chw_pass1
     _cuda_check(x, fp)
     bsz, cin, hh, ww = x.shape
     cm = fp.w1.shape[1]
     cout = fp.w2.shape[1]
-    if (h.shape != (bsz, cm, hh, ww) or h.dtype != x.dtype or not h.is_contiguous()
-            or h.device != x.device):
-        raise ValueError("h must be the contiguous pass-1 output for x")
-    if gate.shape != (bsz, cm) or gate.dtype != torch.float32 or not gate.is_contiguous():
-        raise ValueError("gate must be a contiguous (B, C_mid) float32 tensor")
+    _check_pass2_inputs(h, x, gate, cm, (bsz, cm, hh, ww), (x.dtype,))
     lib = _kernels()
     out = torch.empty((bsz, cout, hh, ww), dtype=x.dtype, device=x.device)
     conv = skip == "conv"
     bf16 = x.dtype == torch.bfloat16
     w2p = ssep = wskp = None
     if bf16:
-        w2p, ssep, wskp = pass2_operands(fp, skip)
+        w2p, ssep, wskp = fp.w2_packed, fp.sse_packed, fp.wsk_packed if conv else None
+        if w2p is None or ssep is None or (conv and wskp is None):
+            raise ValueError("bf16 x needs the folded w2_packed, sse_packed and, for a "
+                             "conv skip, wsk_packed (pass2_operands)")
     with torch.cuda.device(x.device):
         status = lib.fused_ir_chw_pass2(
             h.data_ptr(), x.data_ptr(), gate.data_ptr(), fp.sse_w.data_ptr(),
@@ -461,6 +548,49 @@ def chw_pass2(h, x, gate, fp, *, skip="auto"):
     return out
 
 
+@torch.library.custom_op("deadtrees::chw_pass2", mutates_args=())
+def _chw_pass2_op(h: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+                  fp: Sequence[Optional[torch.Tensor]], skip: str) -> torch.Tensor:
+    """Kernel 1's pass 2 (the kernel on CUDA, the plain version on the
+    CPU); ``skip`` resolved ("none", "identity" or "conv")."""
+    fp = FoldedBlockParams(*fp)
+    if x.device.type == "cpu":
+        return chw_pass2_reference(h, x, gate, fp, skip=skip)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _launch_chw_pass2(h, x, gate, fp, skip)
+
+
+@_chw_pass2_op.register_fake
+def _(h, x, gate, fp, skip):
+    bsz, _, hh, ww = x.shape
+    return x.new_empty((bsz, FoldedBlockParams(*fp).w2.shape[1], hh, ww))
+
+
+def chw_pass2(h, x, gate, fp, *, skip="auto"):
+    """Pass 2: the block output in x's dtype, through the
+    ``deadtrees::chw_pass2`` op. A CUDA tensor launches the kernel; a CPU
+    tensor takes the plain version. bf16 x runs the tensor-core kernel on
+    the packed W2, w_sse and Wsk (:func:`pass2_operands`, computed here,
+    ahead of the op, when ``fp`` lacks them), staged by TMA or plain loads
+    (:func:`pass2_staging`); float32 x runs the float32 kernel."""
+    _on_a_kernel_device(x)
+    skip = _resolve_skip(fp, skip)
+    fp = with_pass2_operands(fp, x, skip)
+    return torch.ops.deadtrees.chw_pass2(h, x, gate, flat(fp), skip)
+
+
+def fused_inverted_residual_chw_reference(
+    x, fp, *, activation="hswish", ksize=3, skip="auto"
+):
+    """The whole block in plain PyTorch, with the kernels' precision:
+    float32 arithmetic, h rounded to x's dtype between the passes."""
+    skip = _check(x, fp, activation, ksize, skip)
+    h, sums = chw_pass1_reference(x, fp, activation=activation, ksize=ksize)
+    gate = cse_gate(sums.sum(1), fp, x.shape[2] * x.shape[3])
+    return chw_pass2_reference(h, x, gate, fp, skip=skip)
+
+
 def fused_inverted_residual_chw(
     x_chw: torch.Tensor,  # (B, C_in, H, W)
     fp: FoldedBlockParams,
@@ -473,12 +603,9 @@ def fused_inverted_residual_chw(
     x's dtype (float32 or bfloat16), any H and W.
 
     On a CUDA tensor this launches the two kernels (or raises); on a CPU
-    tensor it runs :func:`fused_inverted_residual_chw_reference`."""
+    tensor the two passes of :func:`fused_inverted_residual_chw_reference`
+    run, each inside its op."""
     skip = _check(x_chw, fp, activation, ksize, skip)
-    if x_chw.device.type == "cpu":
-        return fused_inverted_residual_chw_reference(
-            x_chw, fp, activation=activation, ksize=ksize, skip=skip
-        )
     h, psum = chw_pass1(x_chw, fp, activation=activation, ksize=ksize)
     gate = cse_gate(psum.sum(1), fp, x_chw.shape[2] * x_chw.shape[3])
     return chw_pass2(h, x_chw, gate, fp, skip=skip)
@@ -508,16 +635,17 @@ def fused_inverted_residual(x_nhwc: torch.Tensor, fp: FoldedBlockParams) -> torc
 
     It runs on the NHWC kernel pair of ``ops/fused_cell.py``
     (``csrc/fused_ir_nhwc.cu``) with h in float32 for a CUDA tensor, and
-    :func:`fused_inverted_residual_reference` for a CPU tensor. The JAX
-    kernel routes an identity skip through an ``eye(C_in, C_out)``
-    product; here it adds x: in float32, x·I equals x exactly."""
+    the passes of :func:`fused_inverted_residual_reference` for a CPU
+    tensor, through the ``deadtrees::fused_inverted_residual_pass1`` /
+    ``_pass2`` ops. The JAX kernel routes an identity skip through an
+    ``eye(C_in, C_out)`` product; here it adds x: in float32, x·I equals x
+    exactly."""
     from deadtrees_tpu_torch.ops import fused_cell
 
     skip = _check(x_nhwc, fp, "hswish", 3, "auto", nhwc=True)
-    if x_nhwc.device.type == "cpu":
-        return fused_inverted_residual_reference(x_nhwc, fp)
-    h, psum = fused_cell.nhwc_pass1(x_nhwc, fp, h_dtype=torch.float32,
-                                    count="fused_inverted_residual_pass1")
+    _on_a_kernel_device(x_nhwc)
+    h, psum = fused_cell.nhwc_pass1_op(x_nhwc, fp, h_dtype=torch.float32,
+                                       count="fused_inverted_residual_pass1")
     gate = cse_gate(psum.sum(1), fp, x_nhwc.shape[1] * x_nhwc.shape[2])
-    return fused_cell.nhwc_pass2(h, x_nhwc, gate, fp, skip=skip,
-                                 count="fused_inverted_residual_pass2")
+    return fused_cell.nhwc_pass2_op(h, x_nhwc, gate, fp, skip=skip,
+                                    count="fused_inverted_residual_pass2")

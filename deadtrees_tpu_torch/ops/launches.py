@@ -4,6 +4,13 @@ One count per kernel, raised by its wrapper where it launches the kernel
 and nowhere else, so a run can show that its path went through the
 kernels: set the counts to 0 with :func:`reset_launch_counts`, drive the
 path, read :data:`LAUNCHES`.
+
+A count advances in Python, where the kernel's custom op runs its
+implementation: at every eager call, and inside a compiled program at its
+warm-up and at its CUDA-graph capture, but not at a graph replay, which
+launches the recorded kernels without running any Python. A replay's
+launches are read by kernel name from a profiler trace (``chip_smoke.py``
+phase 15).
 """
 
 from __future__ import annotations

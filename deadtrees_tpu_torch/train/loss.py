@@ -77,9 +77,13 @@ class CompoundLoss:
         if self.dice_loss is None:
             raise ValueError(f"a dice-family loss (GDICE, GWDICE or DICE) is required: {names}")
 
-    def alpha(self, epoch: int) -> float:
-        """Boundary-loss blend: ramps 0.01 → 0.99 by epoch."""
-        return min((epoch + 1) * self.config.initial_alpha, 0.99)
+    def alpha(self, epoch):
+        """Boundary-loss blend: ramps 0.01 → 0.99 by epoch. An int epoch
+        gives a float; a 0-d tensor epoch (a compiled step's) gives a float32
+        tensor, as the JAX package's traced epoch does."""
+        if isinstance(epoch, torch.Tensor):
+            return torch.clamp((epoch + 1).float() * self.config.initial_alpha, max=0.99)
+        return min((int(epoch) + 1) * self.config.initial_alpha, 0.99)
 
     def __call__(
         self,
@@ -88,7 +92,7 @@ class CompoundLoss:
         *,
         logits: Optional[torch.Tensor] = None,  # needed for GWDICE
         distmap: Optional[torch.Tensor] = None,  # (B, K, H, W) signed distance
-        epoch: int = 0,
+        epoch=0,  # int, or a 0-d tensor
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         parts: Dict[str, torch.Tensor] = {}
         if self.dice_is_gwdl:
@@ -100,7 +104,7 @@ class CompoundLoss:
         if self.boundary_loss is not None and distmap is not None:
             loss_bd = self.boundary_loss(probs, distmap)
             parts["boundary_loss"] = loss_bd
-            loss = loss + (self.alpha(int(epoch)) * loss_bd if self.boundary_ramped else loss_bd)
+            loss = loss + (self.alpha(epoch) * loss_bd if self.boundary_ramped else loss_bd)
         if self.focal_loss is not None:
             loss_fo = self.focal_loss(probs, target_one_hot)
             parts["focal_loss"] = loss_fo

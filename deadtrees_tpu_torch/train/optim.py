@@ -16,7 +16,17 @@ Counterpart of ``deadtrees_tpu.train.optim``, with optax's semantics:
   momentum, as in the JAX train step), then a fresh Adam at
   ``lr / lr_reduce_fraction`` from ``lr_reduce_epoch``.
 
-Updates are applied in place with ``torch._foreach_*`` ops.
+Updates are applied in place on flat buffers (:class:`Optimizer`), and
+:meth:`Optimizer.step` runs no Python arithmetic on a number that changes
+from step to step: the update count ``count`` and the accumulation count
+``mini_step`` are 0-d int32 tensors on the parameters' device (optax's
+counts are arrays too), the learning rate and Adam's bias corrections are
+computed from ``count`` in float32 on the device, as optax computes them,
+and whether an update applies (every k-th step, and only when the step's
+loss is finite: ``finite``) is a device boolean that selects, with
+``torch.where``, between the new and the old parameters and state. So the
+step traces into one program (``train/steps.py``) that compiles once per
+optimizer and never syncs with the host.
 
 The optimizer's state travels in the JAX package's own bytes: the flax
 serialization of the optax state of ``make_optimizer``
@@ -78,27 +88,46 @@ def cosine_annealing_schedule(config: OptimizerConfig, base_lr: float) -> Callab
     return schedule
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, as a float32 0-d
-    tensor. The sums are taken in float64: torch's float32 ``_foreach_norm``
-    on the CPU is off by about 7e-7 of the norm over the b0's 4.6M
-    gradients (optax's float32 norm by about 1e-7), which moves the clip
-    scale and, through Adam, the parameters by more than 1e-7 in a few
-    steps."""
-    norms = torch._foreach_norm(list(grads), 2, dtype=torch.float64)
-    return torch.linalg.vector_norm(torch.stack(norms)).float()
+def bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """``1 - decay**count`` in float32 on the device from the 0-d count
+    tensor, as optax computes it: for b2 = 0.999 the float32 subtraction
+    cancels (1.3e-5 off at count 1), and Adam's update follows the
+    denominator it gets."""
+    return 1.0 - torch.pow(torch.full((), decay, dtype=torch.float32, device=count.device),
+                           count.float())
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    """``1 - decay**count`` in float32, as optax computes it: for b2 = 0.999
-    the float32 subtraction cancels (1.3e-5 off at count 1), and Adam's
-    update follows the denominator it gets."""
-    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+def cosine_rate(config: OptimizerConfig, base_lr: float, count: torch.Tensor) -> torch.Tensor:
+    """:func:`cosine_annealing_schedule` on the device, in float32 as the
+    JAX package's schedule computes it: the learning rate after ``count``
+    applied updates (a 0-d int tensor)."""
+    epoch = torch.div(count, config.steps_per_epoch, rounding_mode="floor")
+    cos = torch.cos(math.pi * epoch.float() / config.cosineannealing_tmax)
+    return config.eta_min + (base_lr - config.eta_min) * (1.0 + cos) / 2.0
+
+
+def global_norm(g: torch.Tensor) -> torch.Tensor:
+    """sqrt of the sum of squares of the flat gradient vector ``g``, as a
+    float32 0-d tensor. The sum is taken in float64: a float32 sum over the
+    b0's 4.6M gradients is off by about 7e-7 of the norm (optax's by about
+    1e-7), which moves the clip scale and, through Adam, the parameters by
+    more than 1e-7 in a few steps."""
+    return torch.linalg.vector_norm(g, dtype=torch.float64).float()
 
 
 class Optimizer:
     """clip-by-global-norm → Adam → per-epoch cosine LR over ``params``
-    (``make_optimizer`` of the JAX package as a stateful object)."""
+    (``make_optimizer`` of the JAX package as a stateful object).
+
+    Its arithmetic runs on flat vectors, a few ops whatever the number of
+    parameters, which keeps its program small to trace and compile: the
+    gradients (``grad``, filled by :meth:`load_grads`), the moments and the accumulator for k > 1 are each
+    one flat float32 buffer (``mu`` / ``nu`` / ``acc`` are lists of views of
+    them in the parameters' shapes), and one foreach op adds the update to
+    the parameters. The parameters stay tensors of their own, without
+    gradients while a program traces them: views of one buffer would be
+    inputs that alias each other, which AOTAutograd checks pair by pair.
+    """
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -106,51 +135,82 @@ class Optimizer:
                  lr_scale: float = 1.0):
         self.params: List[torch.Tensor] = list(params)
         self.config = config
-        self.schedule = cosine_annealing_schedule(config, config.learning_rate * lr_scale)
+        self.base_lr = config.learning_rate * lr_scale
+        self.schedule = cosine_annealing_schedule(config, self.base_lr)
         self.k = max(1, int(config.accumulate_grad_batches or 1))
-        self.count = 0  # applied updates: Adam's bias correction and the LR
-        self.mini_step = 0
+        device = self.params[0].device if self.params else torch.device("cpu")
+        if any(p.dtype != torch.float32 or p.device != device for p in self.params):
+            raise ValueError("the optimizer takes float32 parameters on one device")
+        self._sizes = [p.numel() for p in self.params]
+        n = sum(self._sizes)
         with torch.no_grad():
-            self.mu = [torch.zeros_like(p) for p in self.params]
-            self.nu = [torch.zeros_like(p) for p in self.params]
-            self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else None
+            self.grad = torch.zeros(n, dtype=torch.float32, device=device)
+            # applied updates: Adam's bias correction and the LR
+            self.count = torch.zeros((), dtype=torch.int32, device=device)
+            self.mini_step = torch.zeros((), dtype=torch.int32, device=device)
+            self._mu = torch.zeros(n, dtype=torch.float32, device=device)
+            self._nu = torch.zeros(n, dtype=torch.float32, device=device)
+            self._acc = (torch.zeros(n, dtype=torch.float32, device=device)
+                         if self.k > 1 else None)
+        self.mu, self.nu = self._views(self._mu), self._views(self._nu)
+        self.acc = self._views(self._acc) if self._acc is not None else None
+        # the state stays where it lies: a CUDA graph updates it in place
+        for t in (self.count, self.mini_step, self.grad, self._mu, self._nu, self._acc,
+                  *self.params):
+            if t is not None:
+                torch._dynamo.mark_static_address(t)
+
+    def _views(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """``flat`` cut into the parameters' shapes (views)."""
+        return [v.view(p.shape) for v, p in zip(flat.split(self._sizes), self.params)]
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> bool:
-        """Take one micro-step's gradients; returns True when an update was
-        applied to the parameters (every k-th call)."""
-        grads = list(grads)
+    def load_grads(self, grads: Sequence[torch.Tensor]) -> None:
+        """Copy the parameters' gradients into ``grad`` (one foreach op)."""
+        torch._foreach_copy_(self._views(self.grad), list(grads))
+
+    @torch.no_grad()
+    def step(self, finite: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Take one micro-step's gradients, those in ``grad`` (from
+        :meth:`load_grads`); returns a 0-d device boolean, True when an update was
+        applied to the parameters (every k-th call). ``finite`` (a 0-d
+        device boolean, the step's loss being finite; True when omitted):
+        when False, nothing changes, the accumulation included, as the JAX
+        step's guard selects the old state."""
+        g = self.grad
+        ok = finite if finite is not None else torch.ones(
+            (), dtype=torch.bool, device=self.count.device)
         if self.k > 1:
             # running mean (Welford), as optax.MultiSteps accumulates
-            diff = torch._foreach_sub(grads, self.acc)
-            torch._foreach_div_(diff, float(self.mini_step + 1))
-            torch._foreach_add_(self.acc, diff)
-            self.mini_step += 1
-            if self.mini_step < self.k:
-                return False
-            grads = self.acc
-        norm = global_norm(grads)
+            seen = self.mini_step + 1
+            acc = self._acc + (g - self._acc) / seen.float()
+            apply = ok & (seen >= self.k)
+            g = acc
+        else:
+            apply = ok
+        norm = global_norm(g)
         max_norm = self.config.gradient_clip_val
         scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-        g = torch._foreach_mul(grads, scale)
+        g = g * scale
 
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, g, alpha=1.0 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, g, g, value=1.0 - self.b2)
-        lr = self.schedule(self.count)
-        self.count += 1
-        denom = torch._foreach_div(self.nu, _bias_correction(self.b2, self.count))
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(self.mu, _bias_correction(self.b1, self.count))
-        torch._foreach_div_(upd, denom)
-        torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(self.params, upd)
+        mu = torch.add(self._mu * self.b1, g, alpha=1.0 - self.b1)
+        nu = torch.addcmul(self._nu * self.b2, g, g, value=1.0 - self.b2)
+        lr = cosine_rate(self.config, self.base_lr, self.count)
+        count = self.count + 1
+        denom = torch.sqrt(nu / bias_correction(self.b2, count)) + self.eps
+        upd = mu / bias_correction(self.b1, count) / denom * -lr
+        # nothing moves unless the update applies (p + 0 == p)
+        torch._foreach_add_(self.params,
+                            self._views(torch.where(apply, upd, torch.zeros_like(upd))))
+        self._mu.copy_(torch.where(apply, mu, self._mu))
+        self._nu.copy_(torch.where(apply, nu, self._nu))
+        self.count.copy_(torch.where(apply, count, self.count))
         if self.k > 1:
-            self.mini_step = 0
-            torch._foreach_zero_(self.acc)
-        return True
+            self._acc.copy_(torch.where(ok, torch.where(apply, torch.zeros_like(acc), acc),
+                                        self._acc))
+            self.mini_step.copy_(torch.where(
+                ok, torch.where(apply, torch.zeros_like(seen), seen), self.mini_step))
+        return apply
 
 
 def make_optimizer(
@@ -188,12 +248,13 @@ def optimizer_state_dict(opt: Optimizer, model: torch.nn.Module) -> Dict[str, An
         return tensor_variables_from_state_dict(
             dict(zip(names, tensors)), encoder_name=encoder_name)["params"]
 
-    count = np.asarray(opt.count, np.int32)
+    count = np.asarray(int(opt.count), np.int32)
     inner = {"0": {}, "1": {"count": count, "mu": tree(opt.mu), "nu": tree(opt.nu)},
              "2": {"count": count.copy()}}
     if opt.k == 1:
         return inner
-    return {"mini_step": np.asarray(opt.mini_step, np.int32), "gradient_step": count.copy(),
+    return {"mini_step": np.asarray(int(opt.mini_step), np.int32),
+            "gradient_step": count.copy(),
             "inner_opt_state": inner, "acc_grads": tree(opt.acc), "skip_state": {}}
 
 
@@ -224,8 +285,8 @@ def load_optimizer_state_dict(
     copy_into(opt.nu, inner["1"]["nu"])
     if multi:
         copy_into(opt.acc, state["acc_grads"])
-        opt.mini_step = int(state["mini_step"])
-    opt.count = count
+        opt.mini_step.fill_(int(state["mini_step"]))
+    opt.count.fill_(count)
     return opt
 
 

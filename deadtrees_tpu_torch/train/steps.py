@@ -20,6 +20,24 @@ LR, with the reference's semantics:
   backward recomputes the activations; the recompute's second BatchNorm
   update is undone.
 
+The steps are compiled programs (``core.compile_opts.Program``), as the
+JAX package jits them; on CUDA they run eagerly unless
+``DEADTREES_COMPILE_OPTS`` is set (``by_default=False``: their compiled
+form is not yet checked on the card). A train step runs two: the forward
+and the loss
+(AOTAutograd compiles their backward with them, which ``backward()``
+runs), then the update: the gradients' norm, the NaN/Inf guard and the
+Adam update. The guard is inside the programs, as JAX's ``_select``: the
+forward program keeps the new BatchNorm statistics only where the loss is
+finite, the update program the new parameters and Adam state
+(``torch.where`` on a device boolean). The epoch goes in as a 0-d device
+tensor (the boundary loss's ramp reads it) and ``frozen`` is static: two
+entries of the forward program, as in JAX (a frozen step's encoder
+gradients are zeroed between the programs, with one foreach op). No step
+syncs with the host between its upload and its update. The eval step and
+the predict step are one program each; the eval step counts its
+confusion matrices with a fixed length (``losses.metrics.bin_counts``).
+
 The model computes in its own dtype (bf16 autocast for the flagship);
 tensors are channel-first: 'image' (B, C, H, W) float32, 'mask' (B, H, W)
 integer, 'distmap' (B, K, H, W) float32.
@@ -33,8 +51,9 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
+from deadtrees_tpu_torch.core.compile_opts import Program
 from deadtrees_tpu_torch.losses.functional import class2one_hot
-from deadtrees_tpu_torch.losses.metrics import fscore
+from deadtrees_tpu_torch.losses.metrics import bin_counts, fscore
 from deadtrees_tpu_torch.train.loss import CompoundLoss
 from deadtrees_tpu_torch.train.optim import Optimizer, encoder_grad_mask, global_norm
 
@@ -65,6 +84,28 @@ def _restore(buffers: List[torch.Tensor], saved: List[torch.Tensor]) -> None:
             b.copy_(s)
 
 
+class EpochTensors:
+    """The epoch as a 0-d int32 tensor on ``device``, made once per value:
+    a fresh host-to-device copy at every step would wait for the device."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._made: Dict[int, torch.Tensor] = {}
+
+    def __call__(self, epoch) -> torch.Tensor:
+        if isinstance(epoch, torch.Tensor):
+            return epoch
+        t = self._made.get(int(epoch))
+        if t is None:
+            t = torch.tensor(int(epoch), dtype=torch.int32, device=self.device)
+            self._made[int(epoch)] = t
+        return t
+
+
+def _device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
 def make_train_step(
     model: nn.Module,
     loss: CompoundLoss,
@@ -75,49 +116,79 @@ def make_train_step(
 ):
     """Returns ``train_step(state, batch, epoch, frozen=False) -> (state,
     metrics)``; it updates ``state`` in place. Metrics are 0-d tensors on
-    the model's device."""
+    the model's device. The step runs two programs (module docstring): the
+    forward, whose ``frozen`` entries differ in the encoder's BatchNorm
+    mode, and the update, with the optimizer as an argument, so that a new
+    one (the MultiStage lr-reduce stage) compiles it once more. The
+    optimizer gets the gradients in its flat ``grad`` (``load_grads``)
+    between the two."""
+    device = _device(model)
+    buffers = bn_buffers(model)
+    norms = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    params = list(model.parameters())
+    epochs = EpochTensors(device)
 
     def forward(img: torch.Tensor) -> torch.Tensor:
         if remat:
             return torch.utils.checkpoint.checkpoint(model, img, use_reentrant=False)
         return model(img)
 
+    def forward_loss(img, mask, distmap, epoch):
+        # the statistics that this forward moves: those of the BatchNorms in
+        # train mode (an eval-mode one's are saved for its backward)
+        moving = [b for m in norms if m.training for b in m.buffers()]
+        before = [b.clone() for b in moving]
+        logits = forward(img)
+        y = class2one_hot(mask, num_classes)
+        probs = torch.softmax(logits, dim=1)
+        total, parts = loss(probs, y, logits=logits, distmap=distmap, epoch=epoch)
+        with torch.no_grad():
+            # NaN/Inf guard: the forward's BatchNorm updates stand only when finite
+            finite = torch.isfinite(total)
+            for b, s in zip(moving, before):
+                b.copy_(torch.where(finite, b, s))
+            metrics = {k: v.detach() for k, v in parts.items()}
+            metrics["dice"] = fscore(probs.detach(), y, ignore_channels=[0])
+            metrics["dice_with_bg"] = fscore(probs.detach(), y)
+        return total, metrics
+
+    @torch.no_grad()
+    def update(optimizer, total):
+        # the guard of the parameters and the optimizer state
+        grad_norm = global_norm(optimizer.grad)
+        optimizer.step(finite=torch.isfinite(total))
+        return grad_norm
+
+    forward_program = Program(forward_loss, device, by_default=False)
+    update_program = Program(update, device, by_default=False)
+
     def train_step(
-        state: TrainState, batch: Dict[str, torch.Tensor], epoch: int, frozen: bool = False
+        state: TrainState, batch: Dict[str, torch.Tensor], epoch, frozen: bool = False
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if frozen_bn:
             model.eval()
         else:
             model.train(True, encoder_train=not frozen)
-        buffers = bn_buffers(model)
-        before = [b.clone() for b in buffers]
         model.zero_grad(set_to_none=True)
-
-        logits = forward(batch["image"])
-        after_forward = [b.clone() for b in buffers] if remat else None
-        y = class2one_hot(batch["mask"], num_classes)
-        probs = torch.softmax(logits, dim=1)
-        total, parts = loss(probs, y, logits=logits, distmap=batch.get("distmap"), epoch=epoch)
+        total, metrics = forward_program(
+            batch["image"], batch["mask"], batch.get("distmap"), epochs(epoch))
+        # eagerly, the checkpointed forward's recompute in backward moves the
+        # running statistics a second time; a compiled program's does not
+        restore = remat and forward_program.options() is None
+        after_forward = [b.clone() for b in buffers] if restore else None
         total.backward()
-        if remat:  # the recompute moved the running statistics a second time
+        if restore:
             _restore(buffers, after_forward)
-
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in model.parameters()]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if frozen:
             encoder_grad_mask(model, grads)
-        with torch.no_grad():
-            metrics = {k: v.detach() for k, v in parts.items()}
-            metrics["dice"] = fscore(probs.detach(), y, ignore_channels=[0])
-            metrics["dice_with_bg"] = fscore(probs.detach(), y)
-            metrics["grad_norm"] = global_norm(grads)
-        if bool(torch.isfinite(total)):
-            state.optimizer.step(grads)
-        else:  # NaN/Inf guard: keep the old state
-            _restore(buffers, before)
+        state.optimizer.load_grads(grads)
+        model.zero_grad(set_to_none=True)
+        metrics["grad_norm"] = update_program(state.optimizer, total.detach())
         state.step += 1
         return state, metrics
 
+    train_step.programs = (forward_program, update_program)
     return train_step
 
 
@@ -125,7 +196,7 @@ def make_eval_step(model: nn.Module, loss: CompoundLoss, *, num_classes: int, tt
     """Returns ``eval_step(state, batch, epoch) -> metrics``: the loss
     parts, the Fscores and the unnormalized confusion-matrix counts
     (overall, and over the forest pixels when the batch has 'lu'), for the
-    eval loop to sum.
+    eval loop to sum; one program.
 
     ``tta`` (0, 4 or 8; any other value raises ``ValueError``): the
     probabilities are the mean over the dihedral views of
@@ -139,48 +210,60 @@ def make_eval_step(model: nn.Module, loss: CompoundLoss, *, num_classes: int, tt
             return model(x.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
 
         tta_fn = make_tta_fn(logits_nhwc, views=tta)
+    device = _device(model)
+    epochs = EpochTensors(device)
 
-    @torch.no_grad()
-    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], epoch: int):
-        model.eval()
-        mask = batch["mask"]
+    def evaluate(image, mask, distmap, lu, epoch):
         if tta_fn is None:
-            logits = model(batch["image"])
+            logits = model(image)
             probs = torch.softmax(logits, dim=1)
         else:
-            probs = tta_fn(batch["image"].permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            probs = tta_fn(image.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             logits = torch.log(torch.clamp(probs, 1e-7, 1.0))
         y = class2one_hot(mask, num_classes)
-        _, parts = loss(probs, y, logits=logits, distmap=batch.get("distmap"), epoch=epoch)
+        _, parts = loss(probs, y, logits=logits, distmap=distmap, epoch=epoch)
         idx = mask.reshape(-1).long() * num_classes + probs.argmax(1).reshape(-1)
         n2 = num_classes * num_classes
         out = dict(parts)
         out["dice"] = fscore(probs, y, ignore_channels=[0])
         out["dice_with_bg"] = fscore(probs, y)
-        out["cm"] = torch.bincount(idx, minlength=n2).reshape(num_classes, num_classes)
-        lu = batch.get("lu")
+        out["cm"] = bin_counts(idx, n2).reshape(num_classes, num_classes)
         if lu is not None:
             idx_m = torch.where(lu.reshape(-1) == 1, idx, torch.full_like(idx, n2))
-            out["cm_masked"] = torch.bincount(idx_m, minlength=n2 + 1)[:-1].reshape(
-                num_classes, num_classes
-            )
+            out["cm_masked"] = bin_counts(idx_m, n2 + 1)[:-1].reshape(num_classes, num_classes)
         return out
 
+    program = Program(evaluate, device, by_default=False)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], epoch):
+        model.eval()
+        return program(batch["image"], batch["mask"], batch.get("distmap"), batch.get("lu"),
+                       epochs(epoch))
+
+    eval_step.programs = (program,)
     return eval_step
 
 
 def make_predict_step(model: nn.Module, *, return_probs: bool = True):
     """Inference: images (B, C, H, W) → argmax classes (B, H, W), with the
     probabilities (B, K, H, W) when ``return_probs``; else uint8 classes
-    only (argmax of the logits, no softmax)."""
+    only (argmax of the logits, no softmax). One program (JAX's
+    ``predict_step`` / ``predict_step_classes``)."""
 
-    @torch.no_grad()
-    def predict_step(img: torch.Tensor):
-        model.eval()
+    def predict(img: torch.Tensor):
         logits = model(img)
         if not return_probs:
             return logits.argmax(1).to(torch.uint8)
         probs = torch.softmax(logits, dim=1)
         return probs.argmax(1), probs
 
+    program = Program(predict, _device(model), by_default=False)
+
+    @torch.no_grad()
+    def predict_step(img: torch.Tensor):
+        model.eval()
+        return program(img)
+
+    predict_step.programs = (program,)
     return predict_step

@@ -41,6 +41,15 @@ recalibration (``swa_bn_batches`` batches) and each ``test()`` loop.
 
 It runs on CUDA unless ``device="cpu"`` is passed (the tests do).
 ``devices > 1`` is not ported yet and raises ``NotImplementedError``.
+
+The steps are compiled programs (``train/steps.py``), built once per run;
+the fresh optimizer of the lr-reduce stage compiles the update program
+once more, as the JAX trainer's new ``tx`` retraces its step. SWA's
+BatchNorm recalibration is one program a batch. On CUDA these programs
+run eagerly unless ``DEADTREES_COMPILE_OPTS`` is set
+(``core/compile_opts.py``); the augment program compiles. The distance maps of the
+data path stay eager, as the JAX package's are not jitted at the top
+level (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ from deadtrees_tpu_torch.core.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from deadtrees_tpu_torch.core.compile_opts import Program
 from deadtrees_tpu_torch.data.pipeline import DataConfig, DeadtreesDataModule
 from deadtrees_tpu_torch.infer.engine import resolve_device
 from deadtrees_tpu_torch.models import (
@@ -287,6 +297,11 @@ class Trainer:
         )
         self.eval_step = make_eval_step(self.model, self.loss, num_classes=self.num_classes)
         self.predict_step = make_predict_step(self.model)
+
+        def bn_pass(img: torch.Tensor) -> None:
+            self.model(img)  # train mode: only the running statistics move
+
+        self._bn_pass = Program(bn_pass, self.device, by_default=False)
 
         cb = cfg.get("callbacks", {})
         ms = cb.get("multistage")
@@ -632,11 +647,12 @@ class Trainer:
     def _recalibrate_bn(self, batches) -> int:
         """Move the BatchNorm running statistics, from where they are, over
         ``batches`` in train mode under the model's current parameters
-        (the BatchNorms' flax-semantics momentum); returns the batch count."""
+        (the BatchNorms' flax-semantics momentum), one program a batch (the
+        JAX trainer's jitted ``bn_pass``); returns the batch count."""
         self.model.train(True)
         seen = 0
         for batch in batches:
-            self.model(batch["image"])
+            self._bn_pass(batch["image"])
             seen += 1
         return seen
 

@@ -289,13 +289,15 @@ def test_async_save_then_in_place_step_writes_the_state_before(tmp_path):
     optimizer step."""
     p = torch.zeros(5)
     opt = Optimizer([p], OptimizerConfig(learning_rate=0.1))
-    opt.step([torch.ones(5)])
+    opt.load_grads([torch.ones(5)])
+    opt.step()
     before = p.clone()
     w = AsyncCheckpointWriter()
     gate = threading.Event()
     w._pool.submit(gate.wait)  # the worker stays busy until the step is done
     w.save(tmp_path / "s.ckpt", params={"p": p}, batch_stats={"mu": opt.mu[0]}, hparams={})
-    opt.step([torch.ones(5)])
+    opt.load_grads([torch.ones(5)])
+    opt.step()
     assert not torch.equal(p, before)
     gate.set()
     w.close()

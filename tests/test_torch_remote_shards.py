@@ -62,6 +62,14 @@ def test_pipe_that_fails_after_a_clean_stream_raises(shard):
         list(iter_tar_samples(f"pipe:cat {shard}; exit 3"))
 
 
+def test_pipe_with_bytes_after_the_archive_end_reads_cleanly(shard):
+    """The command still writes after the archive's end marker (1 MiB of
+    padding, more than a pipe holds): the reader takes it to the end, so
+    the command exits 0 rather than of SIGPIPE."""
+    padded = list(iter_tar_samples(f"pipe:cat {shard}; head -c 1048576 /dev/zero"))
+    assert padded == list(iter_tar_samples(str(shard)))
+
+
 def test_pipe_true_gives_no_samples():
     got = []
     with pytest.raises(tarfile.ReadError):

@@ -83,13 +83,18 @@ def _grad_keeper():
 
 
 class GradRecorder:
-    """Stands in for the port's optimizer: keeps the gradients it gets."""
+    """Stands in for the port's optimizer: keeps the gradients it gets
+    (``load_grads``, and ``grad`` flat for the step's norm); its ``step``
+    (with the train step's guard, ``finite``) changes nothing."""
 
     def __init__(self):
-        self.grads = None
+        self.grads = self.grad = None
 
-    def step(self, grads):
+    def load_grads(self, grads):
         self.grads = [g.clone() for g in grads]
+        self.grad = torch.cat([g.reshape(-1) for g in self.grads])
+
+    def step(self, finite=None):
         return True
 
 
@@ -331,7 +336,8 @@ def test_optimizer_matches_optax():
             opt = Optimizer(tp, OptimizerConfig(**cfg), lr_scale=1 / 3)
         upd, js = tx.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
         jp = optax.apply_updates(jp, upd)
-        applied.append(opt.step([torch.from_numpy(g[k]) for k in sorted(shapes)]))
+        opt.load_grads([torch.from_numpy(g[k]) for k in sorted(shapes)])
+        applied.append(opt.step())
         for k, t in zip(sorted(shapes), tp):
             np.testing.assert_allclose(t.numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7,
                                        err_msg=f"step {i} leaf {k}")

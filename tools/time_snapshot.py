@@ -57,7 +57,8 @@ def main() -> int:
     model = init_model(create_model(**hp, dtype=torch.bfloat16),
                        generator=torch.Generator().manual_seed(0)).cuda()
     opt = Optimizer(list(model.parameters()), OptimizerConfig())
-    opt.step([torch.randn_like(p) * 1e-3 for p in model.parameters()])
+    opt.load_grads([torch.randn_like(p) * 1e-3 for p in model.parameters()])
+    opt.step()
     torch.cuda.synchronize()
 
     def leaves(tree, out):
