@@ -164,6 +164,25 @@ Phases (each raises on failure, so the script exits non-zero):
    warmers' cold and phase 15's warm compile seconds, the numbers above,
    the phase's and the script's wall time and the card comes before the
    kernels line.
+16. The serving artifacts (eager; no kernel on the path: the exported
+   program is the plain model, as the JAX package's artifact is). Its
+   exports run after phase 13, while phase 15's warmers finish, and its
+   timings after phase 15. The flagship checkpoint exported with
+   ``infer/export.py`` ``export_inference`` at 512² on the card, float
+   and int8 (bytes and export seconds), and once on the CPU. Each is
+   loaded with ``ExportedInference`` and serves bs 1 and bs 4 from the
+   one artifact (the batch is dynamic): the float artifact against
+   ``TorchInference`` on the plain route, the int8 one against
+   ``TorchInference(quantized=True)``, the CPU-exported one, moved to the
+   card, against the card's float artifact (class-map agreement ≥ 0.99
+   each, and no kernel launched; int8 bytes < 0.6 × float bytes).
+   ``run()`` at bs 4 of the float and int8 artifacts beside the plain
+   engine, in turns, median of ``EXPORT_REPS``, and each one's profile
+   (device busy, idle share, groups, kernel launches a run;
+   torch.profiler, 3 runs). ``SegmentationService(None, exported=...)``
+   answers 4 requests with the artifact's maps. An ``exported`` line with
+   these numbers, the phase's wall time and the card comes before the
+   kernels line.
 
 The last line is the device record; the line before it the card's name
 and power limit, and before that one JSON object describing the kernels
@@ -3132,6 +3151,124 @@ def phase_compiled(ckpt: Path, card: str, cold: dict, t_script: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------------
+
+EXPORT_BS = (1, 4)
+EXPORT_REPS = 9  # run() calls a route in the timing turns
+EXPORT_REQUESTS = 4
+INT8_SIZE_BAR = 0.6  # tests/test_quantize.py:90-110
+
+
+def phase_export(ckpt: Path, card: str) -> dict:
+    """Phase 16's first part (module docstring): export, load, agreement
+    and the service. It runs while phase 15's warmers finish, where the
+    main process would otherwise wait."""
+    import torch
+    from PIL import Image
+
+    from deadtrees_tpu_torch.infer import ExportedInference, TorchInference
+    from deadtrees_tpu_torch.infer.export import export_inference
+    from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from deadtrees_tpu_torch.serve import SegmentationService
+
+    t_phase = time.perf_counter()
+    log(f"phase 16 on {card}: the exported artifacts at {IMG}²")
+    out = {}
+    engines = {}
+    for name, kw in (("float", {}), ("int8", {"quantize": True}), ("cpu", {"device": "cpu"})):
+        path = ckpt.with_name(f"flagship_b5_{name}.ptexp")
+        t0 = time.perf_counter()
+        export_inference(ckpt, path, image_size=IMG, **kw)
+        t1 = time.perf_counter()
+        engines[name] = ExportedInference(path)
+        out[name] = {"path": str(path), "export_s": t1 - t0, "load_s": time.perf_counter() - t1,
+                     "bytes": path.stat().st_size}
+        log(f"  {name}: exported in {t1 - t0:.1f} s, {out[name]['bytes']} bytes, loaded in "
+            f"{out[name]['load_s']:.1f} s on {engines[name].device}")
+    out["int8_over_float_bytes"] = out["int8"]["bytes"] / out["float"]["bytes"]
+    assert out["int8_over_float_bytes"] < INT8_SIZE_BAR, out["int8_over_float_bytes"]
+    pairs = {"float": (engines["float"], TorchInference(ckpt)),
+             "int8": (engines["int8"], TorchInference(ckpt, quantized=True)),
+             "cpu": (engines["cpu"], engines["float"])}
+    rng = np.random.default_rng(SEED + 20)
+    agree = {}
+    reset_launch_counts()
+    for bs in EXPORT_BS:
+        img = rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8)
+        for name, (engine, ref) in pairs.items():
+            got = engine.run(img)
+            assert got.shape == (bs, IMG, IMG) and got.dtype == np.uint8, got.shape
+            agree[f"{name}_bs{bs}"] = float((got == ref.run(img)).mean())
+    # the artifact is the plain model: no kernel of the port on its path
+    assert not any(LAUNCHES.values()), dict(LAUNCHES)
+    log(f"  class-map agreement (float vs plain, int8 vs w8, CPU-exported vs float): "
+        f"{agree} (bar {AGREE_BF16}); kernel launches {dict(LAUNCHES)}")
+    assert all(a >= AGREE_BF16 for a in agree.values()), agree
+    out["agreement"] = agree
+
+    service = SegmentationService(None, exported=out["float"]["path"])
+    assert sorted(service.engines) == ["exported"]
+    for _ in range(EXPORT_REQUESTS):
+        tile = rng.integers(0, 256, (IMG, IMG, 4), dtype=np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(tile, "RGBA").save(buf, "PNG")
+        png, headers = service.segment(buf.getvalue(), "exported")
+        mask = np.asarray(Image.open(io.BytesIO(png)))
+        assert headers["X-model-type"] == "exported" and mask.shape == (IMG, IMG)
+        np.testing.assert_array_equal(mask, np.uint8(engines["float"].run(tile[None])[0] * 255))
+    service.close()
+    out["requests"] = EXPORT_REQUESTS
+    log(f"  SegmentationService(None, exported=...) answered {EXPORT_REQUESTS} requests")
+    del engines, pairs, service
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16, exports: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_export_timings(ckpt: Path, exported: dict, card: str) -> dict:
+    """Phase 16's second part, after phase 15 (no warmer compiles beside
+    it): ``run()`` at bs 4 of the float and int8 artifacts and the plain
+    engine, in turns, median of ``EXPORT_REPS``."""
+    import torch
+
+    from deadtrees_tpu_torch.infer import ExportedInference, TorchInference
+
+    t_phase = time.perf_counter()
+    routes = {"float": ExportedInference(exported["float"]["path"]),
+              "int8": ExportedInference(exported["int8"]["path"]), "plain": TorchInference(ckpt)}
+    img = np.random.default_rng(SEED + 21).integers(0, 256, (4, IMG, IMG, 4), dtype=np.uint8)
+    for engine in routes.values():
+        engine.run(img)  # warm-up
+    times = {name: [] for name in routes}
+    for rep in range(EXPORT_REPS):
+        for name in (list(routes) if rep % 2 == 0 else list(routes)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[name].run(img)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    run_ms = {name: statistics.median(v) for name, v in times.items()}
+    log(f"  run() at bs 4, median of {EXPORT_REPS} in turns: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in run_ms.items()) + f" on {card}")
+    # where a run's time goes: device busy and idle, groups, kernel launches
+    profiles = {}
+    for name, engine in routes.items():
+        prof = _profile(lambda: engine.run(img), 3, ckpt.parent / f"trace_exported_{name}.json")
+        profiles[name] = {"wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+                          "idle": prof["idle"], "groups_ms": prof["groups"],
+                          "launches": sum(prof["kernels"].values()) / 3}
+        log(f"  profile {name}: wall {prof['wall_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms, "
+            f"idle {prof['idle']:.1%}, {profiles[name]['launches']:.0f} kernel launches a "
+            f"run; ms by group {prof['groups']}")
+    del routes
+    torch.cuda.empty_cache()
+    out = {"run_ms_bs4": run_ms, "profiles": profiles, "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 16, timings: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3187,13 +3324,17 @@ def main() -> int:
             torch.cuda.empty_cache()
             recipe = phase_recipe(card)
             torch.cuda.empty_cache()
-            # the warmers' memory is free before phase 14's 74 GiB batch
+            # phase 16's exports fill the wait for the warmers, whose memory
+            # is free before phase 14's 74 GiB batch
+            exported = phase_export(ckpt, card)
             cold = join_warmers(warmers, 1200)
             data = phase_data(card, train)
         torch.cuda.empty_cache()
         compiled = phase_compiled(ckpt, card, cold, t_start)
     finally:
         stop_warmers(warmers)
+    with disable_compile():
+        exported["timings"] = phase_export_timings(ckpt, exported, card)
 
     kernels = []
     for name in REPLACES:
@@ -3231,6 +3372,8 @@ def main() -> int:
     print("recipe " + json.dumps(dict(recipe, card=card)))
     print("data " + json.dumps(dict(data, card=card)))
     print("compiled " + json.dumps(dict(compiled, card=card)))
+    print("exported " + json.dumps(dict(exported, card=card,
+                                        script_s=time.perf_counter() - t_start)))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,17 @@
-"""Package CLI: ``python -m deadtrees_tpu_torch version|train|eval``.
+"""Package CLI: ``python -m deadtrees_tpu_torch version|train|eval|export``.
 
 Counterpart of ``python -m deadtrees_tpu``: ``train`` and ``eval`` take
 the config overrides (``key=value``) of the JAX CLI, and ``--device``
-(CUDA by default; ``--device cpu`` runs on the CPU).
+(CUDA by default; ``--device cpu`` runs on the CPU). ``export CHECKPOINT
+[OUTFILE] [--image-size N]`` is the JAX package's
+``scripts/create_export.py``: it writes the exported inference artifact
+(``infer/export.py``), by default next to the checkpoint with the suffix
+``.ptexp``.
 """
 
 import argparse
 import sys
+from pathlib import Path
 
 
 def main(argv=None) -> int:
@@ -18,6 +23,13 @@ def main(argv=None) -> int:
         p.add_argument("overrides", nargs="*", help="config overrides key=value")
         p.add_argument("--device", default=None,
                        help="torch device (default: cuda; 'cpu' runs on the CPU)")
+
+    p = sub.add_parser("export", help="write the exported inference artifact")
+    p.add_argument("checkpoint", type=Path)
+    p.add_argument("outfile", type=Path, nargs="?", default=None)
+    p.add_argument("--image-size", type=int, default=256)
+    p.add_argument("--device", default=None,
+                   help="torch device to trace on (default: cuda; 'cpu' runs on the CPU)")
 
     args = parser.parse_args(argv)
 
@@ -35,6 +47,14 @@ def main(argv=None) -> int:
         from deadtrees_tpu_torch.train.entry import eval_from_cli
 
         eval_from_cli(args.overrides, device=args.device)
+        return 0
+    if args.command == "export":
+        from deadtrees_tpu_torch.infer.export import SUFFIX, export_inference
+
+        outfile = args.outfile or args.checkpoint.with_suffix(SUFFIX)
+        export_inference(args.checkpoint, outfile, image_size=args.image_size,
+                         device=args.device)
+        print(f"wrote {outfile}")
         return 0
 
     parser.print_help()

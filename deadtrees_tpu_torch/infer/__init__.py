@@ -6,6 +6,7 @@ from deadtrees_tpu_torch.infer.blocks import (
 )
 from deadtrees_tpu_torch.infer.engine import (
     EnsembleInference,
+    ExportedInference,
     Inference,
     TorchInference,
     resolve_device,
@@ -25,6 +26,7 @@ from deadtrees_tpu_torch.infer.tiler import (
 
 __all__ = [
     "EnsembleInference",
+    "ExportedInference",
     "Inference",
     "TileInfo",
     "Tiler",

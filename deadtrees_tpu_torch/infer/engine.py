@@ -11,8 +11,9 @@ It runs on CUDA unless the caller passes ``device="cpu"``; with no device
 asked for and no CUDA available it raises. Every option of the JAX
 engine is ported (the fused decoder in both layouts, w8 / w8a8
 quantization, TTA) with its validation. :class:`EnsembleInference` is the
-odd-N majority vote over checkpoints; the exported engine is not ported
-yet (ROADMAP.md).
+odd-N majority vote over checkpoints; :class:`ExportedInference` runs an
+artifact of ``infer/export.py`` (the ONNX analogue: a ``torch.export``
+program with a dynamic batch).
 
 Each route is one compiled program per input shape
 (``core.compile_opts.Program``), as the JAX engine jits each: uint8 in,
@@ -366,6 +367,35 @@ class EnsembleInference(Inference):
             preds = member.run(batch)  # member slices its own channels
             votes += (preds[..., None] == classes).astype(np.int32)
         return np.argmax(votes, axis=-1).astype(np.uint8)
+
+
+class ExportedInference(Inference):
+    """Runs an exported artifact of ``infer/export.py`` (the ONNX analogue;
+    the JAX engine's ``ExportedInference``). Input channels are sliced to
+    the artifact's ``in_channels``; tiles must be its ``image_size``. Runs
+    on CUDA unless ``device="cpu"``; raises without CUDA."""
+
+    def __init__(self, artifact: Union[str, Path], *,
+                 device: Optional[Union[str, torch.device]] = None):
+        from deadtrees_tpu_torch.infer.export import load_exported
+
+        self.device = resolve_device(device)
+        self._program, self.meta = load_exported(artifact, device=self.device)
+        self.in_channels = self.meta.get("in_channels", 4)
+
+    @torch.no_grad()
+    def predict(self, img_u8: torch.Tensor) -> torch.Tensor:
+        """(B, S, S, C) uint8 tensor on the engine's device → (B, S, S)
+        uint8 class map on the device."""
+        return self._program(img_u8)
+
+    def run(self, batch: np.ndarray) -> np.ndarray:
+        """(B, S, S, C) uint8 → (B, S, S) uint8 class map."""
+        batch = np.asarray(batch)
+        if batch.shape[-1] > self.in_channels:
+            batch = batch[..., : self.in_channels]
+        img = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.uint8))
+        return self.predict(img.to(self.device)).cpu().numpy()
 
 
 def _map_leaves(tree, fn):

@@ -6,10 +6,11 @@ mask (×255) with prediction stats in response headers (fraction, model
 name/type, elapsed seconds), ``GET /healthz`` (liveness + loaded
 configuration) and ``GET /metrics`` (Prometheus request counters).
 
-The backend is ``model_type=torch``: :class:`TorchInference` on the
-checkpoint, with the fused decoder for batches of ≤32 images, or with
-``tta`` dihedral views on the plain model. The exported-artifact engine is
-not ported yet and raises.
+Two backends, one per ``model_type``, as in the JAX service:
+``torch`` is :class:`TorchInference` on the checkpoint, with the fused
+decoder for batches of ≤32 images, or with ``tta`` dihedral views on the
+plain model; ``exported`` is :class:`ExportedInference` on an artifact of
+``infer/export.py``. Either may be served alone.
 
 Two server flavors with the same routes:
 
@@ -44,7 +45,8 @@ LANDING_HTML = """\
     <h1>&#127794;&#9760;&#65039;&#127794; DeadTrees Inference API &#127794;&#9760;&#65039;</h1>
     <p>REST API for semantic segmentation of dead trees from ortho photos.</p>
     <p>POST an image to <code>/segmentation</code>
-       (optional query param <code>model_type=torch</code>).</p>
+       (optional query param <code>model_type=torch</code> or
+       <code>exported</code>).</p>
   </body>
 </html>
 """
@@ -63,22 +65,18 @@ class SegmentationService:
         tta: int = 0,
         device=None,
     ):
-        """``device`` is where the engine runs: CUDA unless ``"cpu"`` is
+        """``device`` is where the engines run: CUDA unless ``"cpu"`` is
         passed; with CUDA missing and no device given this raises.
+        ``checkpoint`` serves ``model_type="torch"``, ``exported`` (an
+        artifact of ``infer/export.py``) ``model_type="exported"``; at
+        least one is needed.
 
         ``tta`` (0/4/8): dihedral test-time-augmentation views
         (``infer/tta.py``), an accuracy-over-latency mode (about ``tta``
         times the device work a request). The engine contract excludes the
         fused decoder under TTA, so ``tta > 0`` serves the plain model."""
-        from deadtrees_tpu_torch.infer import TorchInference
+        from deadtrees_tpu_torch.infer import ExportedInference, TorchInference
 
-        if exported:
-            raise NotImplementedError(
-                "the exported-artifact engine is not ported yet "
-                "(ROADMAP.md, 'export')"
-            )
-        if not checkpoint:
-            raise ValueError("Need a checkpoint")
         self.model_name = model_name
         self.engines: Dict[str, object] = {}
         self.batchers: Dict[str, object] = {}
@@ -92,15 +90,20 @@ class SegmentationService:
         # (create_model raises NotImplementedError for anything else), so
         # every checkpoint that loads takes "auto", unless TTA asks for the
         # plain model.
-        if tta:
+        if checkpoint and tta:
             self.engines["torch"] = TorchInference(checkpoint, tta=tta, device=device)
-        else:
+        elif checkpoint:
             self.engines["torch"] = TorchInference(
                 checkpoint, fused_decoder="auto", device=device
             )
+        if exported:
+            self.engines["exported"] = ExportedInference(exported, device=device)
+        if not self.engines:
+            raise ValueError("Need a checkpoint and/or exported artifact")
         if batch_wait_ms is not None:
             # dynamic batching: concurrent requests of the same image size
-            # coalesce into one device dispatch (power-of-two buckets)
+            # coalesce into one device dispatch (power-of-two buckets);
+            # one batcher per engine
             from deadtrees_tpu_torch.serve.batching import MicroBatcher
 
             for name, engine in self.engines.items():
@@ -354,8 +357,16 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="DeadTrees segmentation server (PyTorch)")
-    ap.add_argument("--checkpoint", default="checkpoints/bestmodel.ckpt")
-    ap.add_argument("--exported", default=None, help="not ported yet: raises")
+    ap.add_argument(
+        "--checkpoint", default=None,
+        help="checkpoint to serve as model_type=torch (default: "
+        "checkpoints/bestmodel.ckpt unless --exported is given; '' for none)",
+    )
+    ap.add_argument(
+        "--exported", default=None,
+        help="artifact of `python -m deadtrees_tpu_torch export` to serve as "
+        "model_type=exported",
+    )
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument(
@@ -383,8 +394,11 @@ def main() -> None:
 
     logging.basicConfig(level=logging.INFO)
     wait = None if args.batch_wait_ms < 0 else args.batch_wait_ms
+    checkpoint = args.checkpoint
+    if checkpoint is None and not args.exported:
+        checkpoint = "checkpoints/bestmodel.ckpt"
     service = SegmentationService(
-        args.checkpoint, args.exported,
+        checkpoint, args.exported,
         batch_wait_ms=wait, max_batch=args.max_batch, tta=args.tta,
         device=args.device,
     )

@@ -10,6 +10,7 @@ composition and order equal JAX's for one stream seed. Every
 ``Trainer`` on the CPU with a small model.
 """
 
+import traceback
 from pathlib import Path
 
 import jax
@@ -166,13 +167,25 @@ def test_remote_extras_mix_with_a_remote_main_set(data):
     extras = [f"pipe:cat {data}/train-negativesamples-{{000000..000002}}.tar"]
     kw = dict(data_dir=spec, batch_size=5, pattern_extra=extras, batch_size_extra=[2],
               distmap=False)
-    ours = DeadtreesDataModule(DataConfig(device="cpu", **kw))
-    theirs = JaxDataModule(JaxDataConfig(use_native=False, **kw))
-    ours.setup()
-    theirs.setup()
-    assert ours.extra_train_shards == theirs.extra_train_shards
-    got = [b["files"] for b in ours.val_batches()]
-    assert got == [list(b["files"]) for b in theirs.val_batches()] and len(got) == 2
+    ours = _streamed(lambda: DeadtreesDataModule(DataConfig(device="cpu", **kw)))
+    theirs = _streamed(lambda: JaxDataModule(JaxDataConfig(use_native=False, **kw)))
+    failed = {name: half for name, half in (("port", ours), ("JAX package", theirs))
+              if isinstance(half, str)}
+    assert not failed, "\n".join(f"the {k}'s stream failed:\n{v}" for k, v in failed.items())
+    assert ours[0] == theirs[0]
+    assert ours[1] == theirs[1] and len(ours[1]) == 2
+
+
+def _streamed(make):
+    """(extra train shards, val batches' files) of the data module that
+    ``make`` builds, or the traceback of what it raised: each package's half
+    runs on its own, so that a failure names the package and its error."""
+    try:
+        dm = make()
+        dm.setup()
+        return dm.extra_train_shards, [list(b["files"]) for b in dm.val_batches()]
+    except Exception:
+        return traceback.format_exc()
 
 
 @pytest.mark.parametrize("size", [1, 3, 4, 10])

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy.ndimage import distance_transform_edt
 
 from deadtrees_tpu.losses import functional as jfn
 from deadtrees_tpu.losses import losses as jl
@@ -46,9 +47,17 @@ def _masks(n=64):
 
 @pytest.mark.parametrize("name", list(_masks()))
 def test_edt_matches_jax(name):
+    """Each package against scipy's exact EDT first, so that a failure names
+    the half that is wrong; then the two against each other."""
     mask = _masks()[name]
     want = np.asarray(jfn.edt(jnp.asarray(mask)))
     got = tfn.edt(torch.from_numpy(mask)).numpy()
+    if mask.any():  # scipy has no finite answer for an all-False mask
+        exact = distance_transform_edt(~mask)
+        np.testing.assert_allclose(got, exact, rtol=0, atol=1e-5,
+                                   err_msg="the port's edt against scipy")
+        np.testing.assert_allclose(want, exact, rtol=0, atol=1e-5,
+                                   err_msg="the JAX package's edt against scipy")
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     if name == "all_false":
         assert np.isfinite(got).all() and got.min() == pytest.approx(1e6)

@@ -24,6 +24,7 @@ from deadtrees_tpu.data import discover_shards as jax_discover_shards
 from deadtrees_tpu.data import expand_shard_urls as jax_expand_shard_urls
 from deadtrees_tpu.data.tar import ShardSampleStream as JaxShardSampleStream
 from deadtrees_tpu.data.tar import cache_shard as jax_cache_shard
+from deadtrees_tpu.data.tar import iter_tar_samples as jax_iter_tar_samples
 from deadtrees_tpu_torch.data import native
 from deadtrees_tpu_torch.data import tar as torch_tar
 from deadtrees_tpu_torch.data.pipeline import DataConfig, DeadtreesDataModule, _BatchProducer
@@ -68,6 +69,25 @@ def test_pipe_with_bytes_after_the_archive_end_reads_cleanly(shard):
     the command exits 0 rather than of SIGPIPE."""
     padded = list(iter_tar_samples(f"pipe:cat {shard}; head -c 1048576 /dev/zero"))
     assert padded == list(iter_tar_samples(str(shard)))
+
+
+def test_a_pipe_writing_its_last_record_late_reads_cleanly(shard):
+    """Python's tarfile reads a stream in records of 10,240 bytes after a
+    512-byte probe, so it stops 9,728 bytes short of the end of an archive
+    padded to whole records. A command that writes those bytes after the
+    reader has closed the pipe dies of SIGPIPE (exit 141): ``cat`` of a
+    shard larger than the pipe's 64 KiB does so when the reader closes
+    before ``cat`` is scheduled again, which a loaded machine makes
+    likely. The JAX package's reader closes the pipe without reading on and
+    raises here; the port's reads to the end. (This is the failure of
+    tests/test_torch_data_extras.py::test_remote_extras_mix_with_a_remote_main_set
+    in some runs: its JAX half.)"""
+    size = shard.stat().st_size
+    assert size % 10240 == 0
+    late = f"pipe:head -c {size - 9728} {shard}; sleep 1; tail -c 9728 {shard}"
+    assert list(iter_tar_samples(late)) == list(iter_tar_samples(str(shard)))
+    with pytest.raises(RuntimeError, match=r"exit 141"):
+        list(jax_iter_tar_samples(late))
 
 
 def test_pipe_true_gives_no_samples():

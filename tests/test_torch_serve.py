@@ -142,12 +142,14 @@ def test_service_needs_cuda_unless_told(ckpt, monkeypatch):
         tserver.main()  # --device defaults to cuda
 
 
-def test_service_unported_options_raise(ckpt):
-    """The exported-artifact engine still raises; ``tta`` now serves the
-    plain model over its views, as the JAX service does."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SegmentationService(ckpt, exported="model.dtexp", device="cpu")
-    with pytest.raises(ValueError, match="checkpoint"):
+def test_service_unported_options_raise(ckpt, tmp_path):
+    """Every option of the JAX service is ported: ``exported=`` loads its
+    artifact (a missing file raises; tests/test_torch_export.py serves one)
+    and ``tta`` serves the plain model over its views, as the JAX service
+    does. With neither a checkpoint nor an artifact the service raises."""
+    with pytest.raises(FileNotFoundError):
+        SegmentationService(None, exported=tmp_path / "missing.ptexp", device="cpu")
+    with pytest.raises(ValueError, match="checkpoint and/or exported"):
         SegmentationService(None, device="cpu")
     service = SegmentationService(ckpt, tta=4, device="cpu")
     engine = service.engines["torch"]
