@@ -183,6 +183,29 @@ Phases (each raises on failure, so the script exits non-zero):
    answers 4 requests with the artifact's maps. An ``exported`` line with
    these numbers, the phase's wall time and the card comes before the
    kernels line.
+17. The model zoo (eager, run after phase 16's exports while phase 15's
+   warmers finish): at the repo's full width (decoder 256/128/64/32/16, 4
+   bands, 3 classes, 512²) from ``init_model`` (seed 0), unet/resnet18
+   (configs/model/unet.yaml), unet, unet++, resunet, resunet++ and
+   efficientunet++ on resnet34 (the architecture grid's ResNet row),
+   resunet++/timm-efficientnet-b5 (the grid's widest cross), unet/resnet50
+   and segformer/mit-b0 (configs/model/segformer.yaml). Each takes 6 eager
+   train steps at bs 16 on one repeated batch through the port's train
+   step, the augment kernel once a step (the loss must fall, peak memory
+   under 80 GB), has its BatchNorm statistics set to the batch's (one
+   forward at momentum 1), is written as a JAX-format checkpoint, loaded by
+   ``TorchInference`` on the service's route (``"auto"`` for
+   efficientunet++, plain for the rest) and ``run()`` is timed at bs 4 and
+   32 (host clock, median of 5); the class maps equal the loaded model's
+   own argmax on the plain route (the fused route's agreement is reported).
+   efficientunet++/resnet34: kernels 1 and 2 against their plain versions
+   at every shape this model gives them, the float32 fused forward on both
+   layouts against the plain model (phase 3's bar, ≥ 0.99 agreement), the
+   bf16 routes' maps against the float32 model's (no further than the
+   plain bf16 model's, less 0.005), and the launches a forward of each. unet/resnet34: the REST
+   service answers 3 requests. resunet++/resnet34: exported, its
+   artifact's maps against the plain engine's. One ``zoo`` JSON line a
+   configuration comes before the kernels line.
 
 The last line is the device record; the line before it the card's name
 and power limit, and before that one JSON object describing the kernels
@@ -267,6 +290,30 @@ AGREE_QUANT = 0.95  # tests/test_quantize.py:87, tests/test_act_quant.py:95
 TTA_MISMATCH = 1e-2  # near-ties of the bf16 logits between two orientations
 EDT_BAR = 1e-4
 TRAIN_BS = 16
+# phase 17: the model zoo at the repo's full width, the configurations of
+# configs/model/unet.yaml, the architecture grid's ResNet row
+# (configs/hparams_search/architecture_grid.yaml), its widest cross, the
+# bottleneck ResNet and configs/model/segformer.yaml
+ZOO = (
+    ("unet", "resnet18"),
+    ("unet", "resnet34"), ("unet++", "resnet34"), ("resunet", "resnet34"),
+    ("resunet++", "resnet34"), ("efficientunet++", "resnet34"),
+    ("resunet++", "timm-efficientnet-b5"),
+    ("unet", "resnet50"),
+    ("segformer", "mit-b0"),
+)
+ZOO_DECODER = (256, 128, 64, 32, 16)
+ZOO_FUSED = ("efficientunet++", "resnet34")  # kernels 1 and 2 at ResNet skips
+ZOO_SERVED = ("unet", "resnet34")  # the REST service on the plain route
+ZOO_EXPORTED = ("resunet++", "resnet34")
+ZOO_TRAIN_STEPS = 6
+# a bf16 fused route's maps against the float32 model may trail the plain
+# bf16 model's by this much: the two round to bf16 in other places, and
+# six steps from initialization leave logit margins near bf16's spacing
+BF16_ROUTE_SLACK = 0.005
+ZOO_RUN_BS = (4, 32)
+ZOO_REPS = 5
+ZOO_REQUESTS = 3
 TRAIN_STEPS = 4  # limit_train_batches per epoch
 VAL_STEPS = 2
 SCENE = 2048  # the production orthophoto tile
@@ -3269,6 +3316,322 @@ def phase_export_timings(ckpt: Path, exported: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17
+# ---------------------------------------------------------------------------
+
+
+def zoo_step_setup(model):
+    """The port's train step for ``model`` with the repo's recipe (losses,
+    Adam at the configured learning rate), as the Trainer builds it."""
+    from deadtrees_tpu_torch.train.loss import build_loss
+    from deadtrees_tpu_torch.train.optim import OptimizerConfig, make_optimizer
+    from deadtrees_tpu_torch.train.steps import TrainState, make_train_step
+
+    loss = build_loss(["GDICE", "FOCAL", "BOUNDARY"], 3)
+    state = TrainState(model, make_optimizer(model.parameters(), OptimizerConfig(
+        learning_rate=3e-4, cosineannealing_tmax=10, gradient_clip_val=0.5,
+        steps_per_epoch=ZOO_TRAIN_STEPS, accumulate_grad_batches=1)))
+    return state, make_train_step(model, loss, num_classes=3)
+
+
+def zoo_train(model, state, train_step, host: dict, params: dict) -> dict:
+    """``ZOO_TRAIN_STEPS`` eager steps on one repeated batch at bs 16: the
+    uint8 batch through the augment kernel (fixed augmentation, so the
+    batch repeats) once a step, then the train step. Returns the losses,
+    the step's median ms (host clock, synchronized, steps 2 on) and the
+    peak memory."""
+    import torch
+
+    from deadtrees_tpu_torch.data.augment import augment_batch
+    from deadtrees_tpu_torch.losses import batch_one_hot2dist, class2one_hot
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    distmap = None
+    losses, times = [], []
+    for _ in range(ZOO_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = augment_batch(None, host["image"], host["mask"], params=params)
+        if distmap is None:  # the same mask every step: one EDT
+            distmap = batch_one_hot2dist(class2one_hot(batch["mask"], 3))
+        batch["distmap"] = distmap
+        _, m = train_step(state, batch, 1)
+        losses.append(float(m["total_loss"]))
+        times.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_ms": statistics.median(times[1:]) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "image": batch["image"]}
+
+
+def zoo_recalibrate(model, image) -> None:
+    """One train-mode forward at BatchNorm momentum 1, no gradients: the
+    running statistics become the batch's, as a trained model's sit near
+    its data's. Six steps from initialization leave them mostly at (0, 1),
+    where eval mode does not normalize and the logits grow into the
+    hundreds, and bfloat16 rounding then decides the argmax."""
+    import torch
+
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    saved = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(image)
+    for m, momentum in zip(norms, saved):
+        m.momentum = momentum
+    model.eval()
+
+
+def zoo_run_ms(engine, imgs: dict) -> dict:
+    """``run()``'s median of ``ZOO_REPS`` calls a batch size, host clock,
+    after one warm-up call."""
+    out = {}
+    for bs, img in imgs.items():
+        engine.run(img)
+        times = []
+        for _ in range(ZOO_REPS):
+            t0 = time.perf_counter()
+            engine.run(img)
+            times.append(time.perf_counter() - t0)
+        out[str(bs)] = statistics.median(times) * 1e3
+    return out
+
+
+def zoo_own_argmax(engine, img_u8: np.ndarray) -> np.ndarray:
+    import torch
+
+    x = fused_input(engine, torch.from_numpy(img_u8).cuda())
+    with torch.no_grad():
+        return engine.model(x).argmax(1).cpu().numpy()
+
+
+def zoo_fused_checks(engine, path: Path, errs: dict) -> dict:
+    """efficientunet++ on a ResNet: kernels 1 and 2 against their plain
+    versions at every shape this model gives them (bs 4, 512², float32 and
+    bfloat16), the float32 fused forward on both layouts against the plain
+    model, and the launches a forward on each bf16 route."""
+    import torch
+
+    from deadtrees_tpu_torch.infer import TorchInference
+    from deadtrees_tpu_torch.models import create_model
+    from deadtrees_tpu_torch.ops import (
+        LAUNCHES,
+        fold_effunetpp_decoder,
+        fused_forward,
+        reset_launch_counts,
+    )
+
+    out = {}
+    model = engine.model
+    gen = torch.Generator().manual_seed(SEED + 40)
+    cells = flagship_block_shapes(model, 4)
+    for name, i, shape, fp in cells:
+        x32 = torch.randn(shape, generator=gen).cuda()
+        for x in (x32, x32.to(torch.bfloat16)):
+            check_case(f"{name}.conv{i + 1} {tuple(shape[1:])}", x, fp, errs)
+    fat = fat_block_shapes(model, 4)
+    log(f"  kernel 2 at the {len(fat)} fat blocks of this model: "
+        + ", ".join(f"{n}.conv{i + 1}" for n, i, _, _ in fat))
+    for name, i, shape, fp in fat:
+        x32 = torch.randn(shape, generator=gen).cuda()
+        for x in (x32, x32.to(torch.bfloat16)):
+            check_nhwc_case(f"{name}.conv{i + 1} {tuple(shape[1:])}", x, fp, errs)
+    out["kernel_shapes"] = {"chw": len(cells), "nhwc_fat": len(fat)}
+
+    hp = engine.hparams
+    model32 = create_model(**hp, dtype=torch.float32)
+    model32.load_state_dict(model.state_dict())
+    model32 = model32.cuda().eval()
+    folded32 = fold_effunetpp_decoder(model32)
+    img = np.random.default_rng(SEED + 41).integers(0, 256, (4, IMG, IMG, 4), dtype=np.uint8)
+    x = fused_input(engine, torch.from_numpy(img).cuda())
+    with torch.no_grad():
+        ref = model32(x)
+        for layout in ("chw", "nhwc"):
+            got = fused_forward(model32, folded32, x, layout=layout)
+            err = max_err(got, ref)
+            bar = FORWARD_F32_BAR * max(1.0, float(ref.abs().max()))
+            agree = float((got.argmax(1) == ref.argmax(1)).float().mean())
+            log(f"  f32 {layout}: fused_forward vs the plain model, logits max err {err:.3e} "
+                f"(bar {bar:.3e}), class-map agreement {agree:.5f} (bar {AGREE_BF16})")
+            if err > bar or agree < AGREE_BF16:
+                raise AssertionError(f"efficientunet++ on a ResNet, {layout}: {err} {agree}")
+            out[f"f32_{layout}"] = {"max_err": err, "bar": bar, "agree": agree}
+        want = ref.argmax(1).cpu().numpy()
+    del model32, folded32, ref, got
+    # bf16, as served: each route's maps against the float32 model's. The
+    # bf16 routes round in other places, so near-ties flip between them;
+    # a fused route must stand as close to float32 as the plain bf16 model
+    launches, to_f32 = {}, {"plain": float((zoo_own_argmax(engine, img) == want).mean())}
+    for layout, kw in (("chw", {"fused_decoder": "chw"}), ("nhwc", {"fused_decoder": "nhwc"})):
+        routed = engine if layout == "chw" else TorchInference(path, **kw)
+        reset_launch_counts()
+        maps = routed.run(img)
+        launches[layout] = {k: v for k, v in LAUNCHES.items() if v}
+        to_f32[layout] = float((maps == want).mean())
+        log(f"  bf16 {layout} route at bs 4: launches a forward {launches[layout]}; maps "
+            f"vs the float32 model {to_f32[layout]:.5f} (plain bf16 {to_f32['plain']:.5f})")
+        if to_f32[layout] < to_f32["plain"] - BF16_ROUTE_SLACK:
+            raise AssertionError(f"the bf16 {layout} route stands further from float32 than "
+                                 f"the plain bf16 model: {to_f32}")
+    out["bf16_agreement_with_f32"] = to_f32
+    out["launches_per_forward"] = launches
+    return out
+
+
+def zoo_service(path: Path) -> int:
+    """The REST service on a plain-route checkpoint answers a few 512²
+    requests over HTTP, with no kernel launched."""
+    from PIL import Image
+
+    from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from deadtrees_tpu_torch.serve import SegmentationService, serve_stdlib
+
+    service = SegmentationService(path)
+    assert service.route == "plain" and not service.engines["torch"].fused_decoder
+    server = serve_stdlib(service, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(SEED + 42)
+    reset_launch_counts()
+    try:
+        for _ in range(ZOO_REQUESTS):
+            tile = rng.integers(0, 256, (IMG, IMG, 4), dtype=np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(tile, "RGBA").save(buf, "PNG")
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}/segmentation",
+                data=buf.getvalue(), headers={"Content-Type": "image/png"}, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                mask = np.asarray(Image.open(io.BytesIO(resp.read())))
+                assert resp.status == 200 and mask.shape == (IMG, IMG), resp.status
+            want = service.engines["torch"].run(tile[None])[0]
+            np.testing.assert_array_equal(mask, np.uint8(want * 255))
+        assert not any(LAUNCHES.values()), dict(LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    return ZOO_REQUESTS
+
+
+def zoo_export(path: Path, engine) -> dict:
+    """The checkpoint exported with ``export_inference`` at 512² on the
+    card; the artifact's maps against the plain engine's."""
+    from deadtrees_tpu_torch.infer import ExportedInference
+    from deadtrees_tpu_torch.infer.export import export_inference
+
+    out_path = path.with_suffix(".ptexp")
+    t0 = time.perf_counter()
+    export_inference(path, out_path, image_size=IMG)
+    export_s = time.perf_counter() - t0
+    exported = ExportedInference(out_path)
+    img = np.random.default_rng(SEED + 43).integers(0, 256, (4, IMG, IMG, 4), dtype=np.uint8)
+    agree = float((exported.run(img) == engine.run(img)).mean())
+    log(f"  exported in {export_s:.1f} s ({out_path.stat().st_size} bytes); artifact vs plain "
+        f"engine class-map agreement {agree:.5f} (bar {AGREE_BF16})")
+    if agree < AGREE_BF16:
+        raise AssertionError(f"the exported artifact disagrees with the plain engine: {agree}")
+    return {"export_s": export_s, "bytes": out_path.stat().st_size, "agree": agree}
+
+
+def phase_zoo(card: str, configs=ZOO) -> list:
+    """Phase 17 (module docstring): the model zoo at full width, eager. For
+    each configuration: ``ZOO_TRAIN_STEPS`` train steps at bs 16 from
+    ``init_model`` (seed 0), the trained weights written as a JAX-format
+    checkpoint, served by ``TorchInference`` on the service's route and
+    timed; one ``zoo`` JSON line each."""
+    import torch
+
+    from deadtrees_tpu_torch.core import save_checkpoint
+    from deadtrees_tpu_torch.data.augment import sample_augment_params
+    from deadtrees_tpu_torch.infer import TorchInference
+    from deadtrees_tpu_torch.models import create_model, init_model
+    from deadtrees_tpu_torch.models import tensor_variables_from_state_dict
+    from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from deadtrees_tpu_torch.serve.server import serving_route
+
+    t_phase = time.perf_counter()
+    log(f"phase 17 on {card}: the model zoo at full width ({IMG}², decoder "
+        f"{list(ZOO_DECODER)}, bs {TRAIN_BS} training)")
+    root = REPO / "build" / "chip_smoke" / "zoo"
+    root.mkdir(parents=True, exist_ok=True)
+    host = _augment_batch_u8()
+    params = {k: v.cuda() for k, v in
+              sample_augment_params(torch.Generator().manual_seed(SEED + 44), TRAIN_BS).items()}
+    rng = np.random.default_rng(SEED + 45)
+    imgs = {bs: rng.integers(0, 256, (bs, IMG, IMG, 4), dtype=np.uint8) for bs in ZOO_RUN_BS}
+    lines = []
+    for arch, encoder in configs:
+        t_cfg = time.perf_counter()
+        hp = {"architecture": arch, "encoder_name": encoder, "decoder_channels": list(ZOO_DECODER),
+              "in_channels": 4, "classes": 3, "encoder_weights": None}
+        model = init_model(create_model(**hp), generator=torch.Generator().manual_seed(SEED))
+        model = model.cuda()
+        n_params = sum(p.numel() for p in model.parameters())
+        state, train_step = zoo_step_setup(model)
+        reset_launch_counts()
+        train = zoo_train(model, state, train_step, host, params)
+        aug_launches = LAUNCHES[AUGMENT]
+        losses = train["losses"]
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{arch}/{encoder}: the loss did not fall: {losses}")
+        if aug_launches != ZOO_TRAIN_STEPS or train["peak_gib"] * 2**30 >= 80e9:
+            raise AssertionError(f"{arch}/{encoder}: augment launches {aug_launches}, "
+                                 f"peak {train['peak_gib']:.2f} GiB")
+        zoo_recalibrate(model, train.pop("image"))
+        path = root / f"{arch}_{encoder}.ckpt".replace("+", "p")
+        save_checkpoint(path, **tensor_variables_from_state_dict(model.state_dict()),
+                        hparams=hp)
+        del model, state, train_step
+        torch.cuda.empty_cache()
+        route = serving_route(path)
+        engine = TorchInference(path, fused_decoder="auto" if route == "auto" else False)
+        line = {"config": f"{arch}/{encoder}", "architecture": engine.model.architecture,
+                "params": n_params, "route": route, "train_steps": ZOO_TRAIN_STEPS,
+                "train_step_ms": train["step_ms"], "train_peak_gib": train["peak_gib"],
+                "loss_first": losses[0], "loss_last": losses[-1],
+                "augment_launches": aug_launches}
+        line["run_ms"] = zoo_run_ms(engine, imgs)
+        agree = {}
+        for bs in ZOO_RUN_BS:
+            got, own = engine.run(imgs[bs]), zoo_own_argmax(engine, imgs[bs])
+            agree[str(bs)] = float((got == own).mean())
+        line["own_argmax_agreement"] = agree
+        if (arch, encoder) == ZOO_FUSED:
+            errs = {name: 0.0 for name in (*REPLACES, *FAT)}
+            line["fused"] = zoo_fused_checks(engine, path, errs)
+            line["fused"]["max_abs_err"] = errs
+        # the plain route is the model's own argmax; the fused route ("auto",
+        # bs <= 32) rounds to bf16 in other places: zoo_fused_checks holds it
+        # against the float32 model, and its agreement is reported here
+        if route == "plain" and min(agree.values()) < 1.0:
+            raise AssertionError(f"{arch}/{encoder}: class maps vs the model's own argmax "
+                                 f"{agree}")
+        log(f"  {arch}/{encoder}: {n_params / 1e6:.2f}M params, route {route}; train step "
+            f"{train['step_ms']:.1f} ms, peak {train['peak_gib']:.2f} GiB, loss "
+            f"{' '.join(f'{v:.4f}' for v in losses)}; run() "
+            + ", ".join(f"bs {b} {ms:.1f} ms" for b, ms in line["run_ms"].items())
+            + f"; maps vs own argmax {agree}")
+        if (arch, encoder) == ZOO_SERVED:
+            line["requests"] = zoo_service(path)
+            log(f"  the REST service (plain route) answered {line['requests']} requests")
+        if (arch, encoder) == ZOO_EXPORTED:
+            line["exported"] = zoo_export(path, engine)
+        del engine
+        torch.cuda.empty_cache()
+        line["seconds"] = time.perf_counter() - t_cfg
+        lines.append(line)
+    phase_s = time.perf_counter() - t_phase
+    for line in lines:
+        line["phase_s"] = phase_s
+    log(f"phase 17: {phase_s:.1f} s")
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -3327,6 +3690,8 @@ def main() -> int:
             # phase 16's exports fill the wait for the warmers, whose memory
             # is free before phase 14's 74 GiB batch
             exported = phase_export(ckpt, card)
+            zoo = phase_zoo(card)
+            torch.cuda.empty_cache()
             cold = join_warmers(warmers, 1200)
             data = phase_data(card, train)
         torch.cuda.empty_cache()
@@ -3374,6 +3739,8 @@ def main() -> int:
     print("compiled " + json.dumps(dict(compiled, card=card)))
     print("exported " + json.dumps(dict(exported, card=card,
                                         script_s=time.perf_counter() - t_start)))
+    for line in zoo:
+        print("zoo " + json.dumps(dict(line, card=card)))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

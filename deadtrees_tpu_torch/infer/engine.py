@@ -123,8 +123,12 @@ class TorchInference(Inference):
         quant_sites: Sequence[str] = ("y",),
         tta: Union[bool, int] = False,
     ):
-        """``fused_decoder`` routes the decoder through the fused CUDA
-        kernels with BatchNorms folded at load:
+        """Every architecture of the zoo serves on the plain model, with
+        ``quantized=True`` (w8) and ``tta``. ``fused_decoder`` and w8a8
+        apply to efficientunet++ checkpoints (on any encoder) and raise
+        ``ValueError`` for any other architecture. ``fused_decoder`` routes
+        the decoder through the fused CUDA kernels with BatchNorms folded
+        at load:
 
         - ``"auto"``: batch-size-aware — requests with ≤32 images run the
           CHW kernels, larger batches the plain model (the serving API
@@ -170,6 +174,14 @@ class TorchInference(Inference):
         self.model, self.variables, self.hparams = load_model(
             checkpoint, device=self.device
         )
+        if (fused_decoder or quantized == "w8a8") and (
+            self.model.architecture != "efficientunetplusplus"
+        ):
+            raise ValueError(
+                f"fused_decoder={fused_decoder!r} / quantized={quantized!r} run the folded "
+                "EfficientUnet++ decoder; this checkpoint is "
+                f"{self.model.architecture} on {self.model.encoder_name}"
+            )
         self.in_channels = _sniff_in_channels(self.variables["params"], self.hparams)
         self.mean = tuple(mean)[: self.in_channels]
         self.std = tuple(std)[: self.in_channels]
@@ -296,10 +308,12 @@ class EnsembleInference(Inference):
       summed as one-hot int32 on the device and the result is their argmax,
       which picks the smallest class on a tie (``torch.argmax`` returns the
       first maximal index), as the reference's ``torch.mode`` does.
-    - Mixed architectures or encoders: one :class:`TorchInference` each
-      (argmax of the softmax), the votes summed on the host. Members must
-      agree on ``classes``; ``in_channels`` may differ, each member slices
-      its own, and the widest is kept here.
+    - Members of mixed hparams (any architectures and encoders of the zoo,
+      a Unet beside an EfficientUnet++ or a SegFormer): one plain
+      :class:`TorchInference` each (argmax of the softmax), the votes
+      summed on the host. Members must agree on ``classes``;
+      ``in_channels`` may differ, each member slices its own, and the
+      widest is kept here.
 
     Runs on CUDA unless ``device="cpu"``; raises without CUDA."""
 

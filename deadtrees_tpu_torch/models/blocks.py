@@ -1,10 +1,14 @@
-"""NN building blocks of the EfficientUnet++ decoder (PyTorch, NCHW).
+"""NN building blocks of the decoder zoo (PyTorch, NCHW).
 
 Counterparts of ``deadtrees_tpu.models.blocks``, laid out with the
 reference smp module structure so that ``state_dict()`` keys match the
-reference checkpoints (``block.0`` expand, ``block.3`` depthwise,
-``block.6.cSE``/``sSE``, ``block.7`` project, ``skip_conv``,
-``segmentation_head.0``).
+reference checkpoints: the inverted residual (``block.0`` expand,
+``block.3`` depthwise, ``block.6.cSE``/``sSE``, ``block.7`` project,
+``skip_conv``), the conv-BN-ReLU pair (``conv1.0`` / ``conv1.1``), the
+attention wrapper (``attention1.attention.cSE.1``), the ResUnet++ ASPP
+(``aspp_block{1..4}.0`` conv / ``.2`` BN, ``output``) and attention gate
+(``decoder_conv`` / ``encoder_conv`` / ``attn_conv``, BN at 0, conv at 2),
+and ``segmentation_head.0``.
 
 Only the default (single-tensor) InvertedResidual path is ported: the JAX
 package's env-gated layout experiments compute the same numbers.
@@ -87,6 +91,91 @@ class SCSEModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cSE(x) + self.sSE(x)
+
+
+class Attention(nn.Module):
+    """smp's attention wrapper (the JAX package's ``make_attention``):
+    ``self.attention`` is an SCSE (``"scse"``) or SE (``"se"``) module of
+    reduction 16, or an identity with no parameters for ``name=None``."""
+
+    def __init__(self, name, channels: int):
+        super().__init__()
+        if name is None:
+            self.attention = nn.Identity()
+        elif name == "scse":
+            self.attention = SCSEModule(channels)
+        elif name == "se":
+            self.attention = SEModule(channels)
+        else:
+            raise ValueError(f"Attention {name} is not implemented")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.attention(x)
+
+
+class ConvBnAct(nn.Sequential):
+    """conv → BatchNorm → ReLU (the reference ``Conv2dReLU``, which also
+    stands in for its identically ordered ``PreActivatedConv2dReLU``);
+    the conv is bias-free, BatchNorm eps 1e-5."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3):
+        super().__init__(
+            nn.Conv2d(in_channels, features, kernel_size, padding=kernel_size // 2,
+                      bias=False),
+            BatchNorm2d(features, eps=1e-5),
+            nn.ReLU(),
+        )
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling bridge of ResUnet++: three dilated
+    3×3 branches (rates 6/12/18) and one plain 3×3, each conv → ReLU → BN
+    in that (unusual) order with biased convs, concatenated and merged by
+    a biased 1×1 conv."""
+
+    def __init__(self, in_channels: int, features: int, rates=(6, 12, 18)):
+        super().__init__()
+        for i, rate in enumerate(tuple(rates) + (1,), start=1):
+            setattr(self, f"aspp_block{i}", nn.Sequential(
+                nn.Conv2d(in_channels, features, 3, padding=rate, dilation=rate),
+                nn.ReLU(),
+                BatchNorm2d(features, eps=1e-5),
+            ))
+        self.n_branches = len(rates) + 1
+        self.output = nn.Conv2d(self.n_branches * features, features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [getattr(self, f"aspp_block{i}")(x) for i in range(1, self.n_branches + 1)]
+        return self.output(torch.cat(outs, dim=1))
+
+
+def _bn_relu_conv(in_channels: int, features: int, kernel_size: int) -> nn.Sequential:
+    return nn.Sequential(
+        BatchNorm2d(in_channels, eps=1e-5),
+        nn.ReLU(),
+        nn.Conv2d(in_channels, features, kernel_size, padding=kernel_size // 2),
+    )
+
+
+class RUPPAttentionBlock(nn.Module):
+    """ResUnet++ decoder attention gate: BN → ReLU → 3×3 conv of the
+    decoder stream, plus the same of the skip max-pooled 2×2 when there
+    is one, then BN → ReLU → 1×1 conv back to the input width; the spatial
+    mean of that is the per-channel gate on x."""
+
+    def __init__(self, in_channels: int, skip_channels: int, features: int):
+        super().__init__()
+        if skip_channels:
+            self.encoder_conv = _bn_relu_conv(skip_channels, features, 3)
+        self.decoder_conv = _bn_relu_conv(in_channels, features, 3)
+        self.attn_conv = _bn_relu_conv(features, in_channels, 1)
+
+    def forward(self, x: torch.Tensor, skip=None) -> torch.Tensor:
+        out = self.decoder_conv(x)
+        if skip is not None:
+            out = out + F.max_pool2d(self.encoder_conv(skip), 2, 2)
+        out = self.attn_conv(out)
+        return out.mean((2, 3), keepdim=True) * x
 
 
 class InvertedResidual(nn.Module):

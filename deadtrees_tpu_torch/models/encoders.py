@@ -1,8 +1,10 @@
-"""EfficientNet-B0..B7 feature extractors (PyTorch, NCHW).
+"""ResNet-18/34/50 and EfficientNet-B0..B7 feature extractors (PyTorch, NCHW).
 
-Counterpart of the EfficientNet half of ``deadtrees_tpu.models.encoders``,
-laid out with the timm state-dict key scheme smp's timm-efficientnet
-encoders load (``conv_stem``, ``bn1``, ``blocks.{stage}.{block}.conv_pw /
+Counterpart of ``deadtrees_tpu.models.encoders``. The ResNets keep the
+torchvision key scheme smp's resnet encoders load (``conv1``, ``bn1``,
+``layer{1..4}.{block}.conv{1,2[,3]} / bn{1,2[,3]} / downsample.0 / .1``);
+the EfficientNets keep the timm state-dict key scheme smp's
+timm-efficientnet encoders load (``conv_stem``, ``bn1``, ``blocks.{stage}.{block}.conv_pw /
 bn1 / conv_dw / bn2 / se.conv_reduce / se.conv_expand / conv_pwl / bn3``;
 the expand-ratio-1 stage-1 blocks are ``conv_dw / bn1 / se / conv_pw /
 bn2``).
@@ -10,7 +12,8 @@ bn2``).
 Both forward conventions of the JAX encoder stay selectable:
 ``bn_eps`` 1e-3 (default) or 1e-5, and ``pad_type`` "static" (torch k//2
 padding) or "same" (TF-SAME: a dynamic asymmetric pad, then a VALID conv).
-The ResNet encoders are not ported yet (ROADMAP.md).
+The ResNets have one convention (torchvision's: BatchNorm eps 1e-5,
+symmetric padding) and take neither option.
 """
 
 from __future__ import annotations
@@ -26,6 +29,107 @@ from torch import nn
 from deadtrees_tpu_torch.models.blocks import BatchNorm2d
 
 log = logging.getLogger(__name__)
+
+# ---------------------------------------------------------------------------
+# ResNet (torchvision layout: resnet18 / resnet34 basic, resnet50 bottleneck)
+# ---------------------------------------------------------------------------
+
+
+def _conv_bn(cin: int, cout: int, kernel: int, stride: int = 1):
+    conv = nn.Conv2d(cin, cout, kernel, stride, padding=kernel // 2, bias=False)
+    return conv, BatchNorm2d(cout, eps=1e-5)
+
+
+class BasicBlock(nn.Module):
+    """torchvision ResNet basic block: two 3×3 convs (the stride on the
+    first, padded (1, 1) as torch pads) + identity, 1×1 projection when the
+    shape changes."""
+
+    expansion = 1
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1):
+        super().__init__()
+        self.conv1, self.bn1 = _conv_bn(in_channels, features, 3, stride)
+        self.conv2, self.bn2 = _conv_bn(features, features, 3)
+        self.downsample = None
+        if stride != 1 or in_channels != features:
+            self.downsample = nn.Sequential(*_conv_bn(in_channels, features, 1, stride))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = self.bn2(self.conv2(h))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(h + residual)
+
+
+class Bottleneck(nn.Module):
+    """torchvision ResNet bottleneck: 1×1 reduce → 3×3 (the stride here) →
+    1×1 expand ×4, 1×1 projection when the shape changes."""
+
+    expansion = 4
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1):
+        super().__init__()
+        out = features * self.expansion
+        self.conv1, self.bn1 = _conv_bn(in_channels, features, 1)
+        self.conv2, self.bn2 = _conv_bn(features, features, 3, stride)
+        self.conv3, self.bn3 = _conv_bn(features, out, 1)
+        self.downsample = None
+        if stride != 1 or in_channels != out:
+            self.downsample = nn.Sequential(*_conv_bn(in_channels, out, 1, stride))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = F.relu(self.bn2(self.conv2(h)))
+        h = self.bn3(self.conv3(h))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(h + residual)
+
+
+RESNET_WIDTHS = (64, 128, 256, 512)
+
+
+class ResNetEncoder(nn.Module):
+    """ResNet backbone emitting the 6-level smp feature pyramid: the input,
+    the stem activation (reduction 2), then the output of each of the four
+    stages (reductions 4, 8, 16, 32). The stem max-pool is 3×3 stride 2
+    padded with -inf, ``F.max_pool2d(x, 3, 2, 1)``."""
+
+    def __init__(self, stage_sizes: Sequence[int], block: str = "basic",
+                 in_channels: int = 3):
+        super().__init__()
+        self.conv1, self.bn1 = _conv_bn(in_channels, 64, 7, 2)
+        block_cls = BasicBlock if block == "basic" else Bottleneck
+        cin = 64
+        for stage, (n, width) in enumerate(zip(stage_sizes, RESNET_WIDTHS)):
+            blocks = []
+            for i in range(n):
+                blocks.append(block_cls(cin, width, 2 if stage > 0 and i == 0 else 1))
+                cin = width * block_cls.expansion
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        features = [x]
+        h = F.relu(self.bn1(self.conv1(x)))
+        features.append(h)
+        h = F.max_pool2d(h, 3, 2, 1)
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            h = stage(h)
+            features.append(h)
+        return features
+
+
+# (stage sizes, block) per ResNet
+RESNET_GEOMETRY = {
+    "resnet18": ((2, 2, 2, 2), "basic"),
+    "resnet34": ((3, 4, 6, 3), "basic"),
+    "resnet50": ((3, 4, 6, 3), "bottleneck"),
+}
+
+
+# ---------------------------------------------------------------------------
+# EfficientNet (B0..B7)
+# ---------------------------------------------------------------------------
 
 # Base (B0) stage configs: (expand_ratio, channels, num_blocks, stride, kernel)
 _EFFNET_BASE = (
@@ -230,7 +334,27 @@ def _effnet_out_channels(width_mult: float) -> Tuple[int, ...]:
     return (3, r(32), r(24), r(40), r(112), r(320))
 
 
-ENCODERS = {}
+def _resnet_builder(stage_sizes, block):
+    def build(in_channels: int, **opts) -> ResNetEncoder:
+        if opts:
+            raise TypeError(
+                f"the ResNet encoders take no convention options (got {sorted(opts)}): "
+                "bn_eps / pad_type select between EfficientNet conventions only"
+            )
+        return ResNetEncoder(stage_sizes, block, in_channels=in_channels)
+
+    return build
+
+
+ENCODERS = {
+    name: {
+        "builder": _resnet_builder(stage_sizes, block),
+        "out_channels": (3, 64) + tuple(
+            w * (4 if block == "bottleneck" else 1) for w in RESNET_WIDTHS
+        ),
+    }
+    for name, (stage_sizes, block) in RESNET_GEOMETRY.items()
+}
 for _name, (_w, _d) in _EFFNET_PARAMS.items():
     ENCODERS[_name] = {
         "builder": (
@@ -243,9 +367,6 @@ for _name, (_w, _d) in _EFFNET_PARAMS.items():
     # smp configures these as "timm-efficientnet-bN"
     ENCODERS[f"timm-{_name}"] = ENCODERS[_name]
 
-_UNPORTED_ENCODERS = ("resnet18", "resnet34", "resnet50")
-
-
 def get_encoder(
     name: str,
     *,
@@ -256,15 +377,11 @@ def get_encoder(
     """Build an encoder module + its ``out_channels`` tuple.
 
     ``encoder_options`` (``bn_eps`` / ``pad_type``; None means the family
-    default) select the forward convention documented in
-    docs/encoder_audit.md.
+    default) select the EfficientNet forward convention documented in
+    docs/encoder_audit.md; a ResNet raises ``TypeError`` for any option
+    that is not None (torchvision's conventions are fully determined).
     """
     key = name.lower().strip()
-    if key in _UNPORTED_ENCODERS:
-        raise NotImplementedError(
-            f"encoder {name!r} is not ported yet (ROADMAP.md, 'The rest of "
-            "the model zoo')"
-        )
     if key not in ENCODERS:
         raise ValueError(f"Unknown encoder '{name}'. Available: {sorted(ENCODERS)}")
     if weights == "imagenet":

@@ -420,9 +420,9 @@ def _eps_for_site(bn_name: str, encoder_bn_eps: float) -> float:
     """The epsilon the PORT's BatchNorm applies at this site: the
     efficientnet encoder's ``bn_eps`` (``models/encoders.py``, 1e-3 unless
     the hparams say otherwise) and torch's default 1e-5 in every decoder
-    block (``models/blocks.py``). A resnet encoder would run at 1e-5
-    (:func:`state_dict_from_onnx` sets that; the port does not build one
-    yet). The synthesized ``var = 1 - eps`` is an identity only at the eps
+    block (``models/blocks.py``). A resnet encoder runs at 1e-5
+    (:func:`state_dict_from_onnx` sets that when the graph has no
+    ``encoder.conv_stem``). The synthesized ``var = 1 - eps`` is an identity only at the eps
     the loading model uses."""
     if bn_name.startswith("encoder.bn") or (
         bn_name.startswith("encoder.blocks.")
@@ -711,16 +711,15 @@ def write_onnx(
     outputs: Sequence[str] = ("output",),
 ) -> bytes:
     """Serialize a ModelProto. Round-trips through :func:`read_onnx`."""
-    g = b""
-    for node in nodes:
-        g += _ld(1, _enc_node(node))
-    g += _ld(2, graph_name.encode())
-    for name, arr in initializers.items():
-        g += _ld(5, _enc_tensor(name, arr))
-    for name in inputs:
-        g += _ld(11, _ld(1, name.encode()))
-    for name in outputs:
-        g += _ld(12, _ld(1, name.encode()))
+    # one join: growing a bytes object tensor by tensor copies the graph
+    # once per initializer
+    g = b"".join(
+        [_ld(1, _enc_node(node)) for node in nodes]
+        + [_ld(2, graph_name.encode())]
+        + [_ld(5, _enc_tensor(name, arr)) for name, arr in initializers.items()]
+        + [_ld(11, _ld(1, name.encode())) for name in inputs]
+        + [_ld(12, _ld(1, name.encode())) for name in outputs]
+    )
     m = _tag(1, 0) + _varint(8)  # ir_version 8
     m += _ld(2, b"deadtrees_tpu")  # producer_name
     m += _ld(7, g)
@@ -739,10 +738,13 @@ def onnx_from_torch_modules(model, *, fuse_bn: bool, opset: int = 11) -> bytes:
     initializers under state-dict names — the layout torch's TorchScript
     exporter produces. With ``fuse_bn=True`` it reproduces the
     eval-peephole pass (create_onnx.py's ``do_constant_folding=True`` +
-    eval): each bias-free Conv directly followed (module order) by its
-    BatchNorm gets the BN folded into its weight/bias and the BN node
-    dropped; the fused bias initializer gets a NON-semantic name
-    (``onnx::Conv_<n>``) to mirror the exporter's generated names.
+    eval): each Conv followed (module order) by its own BatchNorm — the
+    pair :func:`paired_bn_name` names — gets the BN folded into its
+    weight/bias and the BN node dropped; the fused bias initializer gets a
+    NON-semantic name (``onnx::Conv_<n>``) to mirror the exporter's
+    generated names. A BatchNorm that is no conv's pair (the ResUnet++
+    ASPP's conv → ReLU → BN, the attention gate's BN → ReLU → conv) stays
+    a node, as the exporter leaves it.
 
     The node chain is sequential (single path) — faithful enough for
     weight/attribute extraction, which never executes the graph.
@@ -764,6 +766,7 @@ def onnx_from_torch_modules(model, *, fuse_bn: bool, opset: int = 11) -> bytes:
         prev_out = out
 
     mods = [(n, m) for n, m in model.named_modules() if n]
+    conv_names = frozenset(n for n, m in mods if isinstance(m, torch.nn.Conv2d))
     pending: Optional[Tuple[str, object]] = None  # bias-free conv awaiting BN
 
     def flush(fold=None):
@@ -837,7 +840,8 @@ def onnx_from_torch_modules(model, *, fuse_bn: bool, opset: int = 11) -> bytes:
                 }, name=name)
         elif isinstance(mod, torch.nn.BatchNorm2d):
             if (pending is not None
-                    and pending[1].out_channels == mod.num_features):
+                    and pending[1].out_channels == mod.num_features
+                    and paired_bn_name(pending[0], conv_names) == name):
                 flush(fold=mod)
             else:
                 flush()

@@ -7,9 +7,10 @@ name/type, elapsed seconds), ``GET /healthz`` (liveness + loaded
 configuration) and ``GET /metrics`` (Prometheus request counters).
 
 Two backends, one per ``model_type``, as in the JAX service:
-``torch`` is :class:`TorchInference` on the checkpoint, with the fused
-decoder for batches of ≤32 images, or with ``tta`` dihedral views on the
-plain model; ``exported`` is :class:`ExportedInference` on an artifact of
+``torch`` is :class:`TorchInference` on the checkpoint: an
+efficientunet++ with the fused decoder for batches of ≤32 images, any
+other architecture on the plain model, and with ``tta`` dihedral views
+the plain model whatever the architecture; ``exported`` is :class:`ExportedInference` on an artifact of
 ``infer/export.py``. Either may be served alone.
 
 Two server flavors with the same routes:
@@ -52,6 +53,18 @@ LANDING_HTML = """\
 """
 
 
+def serving_route(checkpoint: Union[str, Path], tta: int = 0) -> str:
+    """The service's route for a checkpoint: ``"auto"`` (the fused decoder
+    for batches of ≤32 images) for an efficientunet++ without TTA, else
+    ``"plain"``."""
+    from deadtrees_tpu_torch.core.checkpoint import load_checkpoint
+    from deadtrees_tpu_torch.models import canonical_architecture
+
+    hp = load_checkpoint(checkpoint)["hparams"]
+    arch = canonical_architecture(hp.get("architecture", "efficientunet++"))
+    return "auto" if arch == "efficientunetplusplus" and not tta else "plain"
+
+
 class SegmentationService:
     """Model-holding core shared by both server flavors."""
 
@@ -85,16 +98,17 @@ class SegmentationService:
         self._requests: Dict[str, int] = {}
         self._errors_total = 0
         self._latency_sum = 0.0
-        # API requests are small batches: batch-size-aware decoder routing
-        # (≤32 images → fused kernels). The port builds only efficientunet++
-        # (create_model raises NotImplementedError for anything else), so
-        # every checkpoint that loads takes "auto", unless TTA asks for the
-        # plain model.
-        if checkpoint and tta:
-            self.engines["torch"] = TorchInference(checkpoint, tta=tta, device=device)
-        elif checkpoint:
+        # API requests are small batches: an efficientunet++ checkpoint takes
+        # the batch-size-aware fused route ("auto": ≤32 images on the fused
+        # kernels), every other architecture the plain model; the route is
+        # chosen from the checkpoint's architecture, never by catching a
+        # failure. TTA asks for the plain model.
+        self.route = None
+        if checkpoint:
+            self.route = serving_route(checkpoint, tta)
             self.engines["torch"] = TorchInference(
-                checkpoint, fused_decoder="auto", device=device
+                checkpoint, device=device, tta=tta,
+                fused_decoder="auto" if self.route == "auto" else False,
             )
         if exported:
             self.engines["exported"] = ExportedInference(exported, device=device)

@@ -224,8 +224,13 @@ def make_optimizer(
 
 def encoder_grad_mask(model: torch.nn.Module, grads: Sequence[torch.Tensor]) -> None:
     """Zero, in place, the gradients of the ``encoder`` parameters of
-    ``model`` (``grads`` in ``model.parameters()`` order)."""
-    enc = {id(p) for p in model.encoder.parameters()}
+    ``model`` (``grads`` in ``model.parameters()`` order). A model without
+    an ``encoder`` (SegFormer) keeps every gradient, as the JAX mask keeps
+    a tree without an ``encoder`` subtree."""
+    encoder = getattr(model, "encoder", None)
+    if encoder is None:
+        return
+    enc = {id(p) for p in encoder.parameters()}
     torch._foreach_zero_([g for p, g in zip(model.parameters(), grads) if id(p) in enc])
 
 

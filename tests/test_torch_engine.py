@@ -199,8 +199,8 @@ def test_no_device_means_cuda(jax_ckpt, monkeypatch):
 
 
 def test_unsupported_knobs_raise(jax_ckpt, tmp_path):
-    """The JAX engine's refusals, as ValueError; a checkpoint of an
-    architecture the port does not build yet raises NotImplementedError."""
+    """The JAX engine's refusals, as ValueError; a fused route asked of a
+    checkpoint that is not efficientunet++ raises ValueError naming it."""
     path, _ = jax_ckpt
     for kwargs, match in (
         (dict(fused_decoder="fast"), "fused_decoder"),
@@ -215,10 +215,11 @@ def test_unsupported_knobs_raise(jax_ckpt, tmp_path):
         with pytest.raises(ValueError, match=match):
             TorchInference(path, device="cpu", **kwargs)
     unet = tmp_path / "unet.ckpt"
-    save_checkpoint(unet, params={}, batch_stats={}, hparams=dict(
-        architecture="unet", encoder_name="resnet18", in_channels=4, classes=3,
-        decoder_channels=[16, 16, 8, 8, 8]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    hp = dict(architecture="unet", encoder_name="resnet18", in_channels=4, classes=3,
+              decoder_channels=[16, 16, 8, 8, 8])
+    save_checkpoint(unet, **variables_from_state_dict(create_model(**hp).state_dict()),
+                    hparams=hp)
+    with pytest.raises(ValueError, match="unet on resnet18"):
         TorchInference(unet, device="cpu", fused_decoder="auto")
 
 

@@ -43,7 +43,7 @@ def test_importing_every_module_loads_no_jax():
     assert "deadtrees_tpu_torch.ops.fused_mbconv" in modules
     assert "deadtrees_tpu_torch.serve.server" in modules
     for name in ("core.compile_opts", "infer.blocks", "infer.geotiff", "infer.tiler",
-                 "infer.sliding", "infer.export", "models.onnx_io",
+                 "infer.sliding", "infer.export", "models.onnx_io", "models.segformer",
                  "infer.engine", "infer.scene", "geo", "geo.mosaic", "geo.retile",
                  "config", "config.loader", "utils.env", "utils.logging", "visualization",
                  "visualization.helper", "train.entry", "__main__"):

@@ -37,6 +37,13 @@ def numpy_variables(model, image_size, seed=1):
     shapes = jax.eval_shape(
         lambda: jax_init_model(model, jax.random.PRNGKey(0), image_size=image_size)
     )
+    return fill_tree(shapes, seed)
+
+
+def fill_tree(shapes, seed=1):
+    """A tree of the shapes of ``shapes`` (any leaves with a ``shape``)
+    filled from a seeded numpy generator as :func:`numpy_variables` fills
+    it, leaf by leaf in the tree's sorted order."""
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -140,10 +147,11 @@ def test_create_model_rejects_what_it_does_not_build():
         create_model(foo=1)
     with pytest.raises(TypeError):
         create_model(encoder_options={"bn_eps": 1e-5, "stride": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("unet", "resnet18")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("efficientunet++", "resnet34")
+    # the zoo builds, and each model says what it is
+    with torch.device("meta"):
+        assert create_model("unet", "resnet18").architecture == "unet"
+        assert create_model("efficientunet++", "resnet34").architecture == (
+            "efficientunetplusplus")
     with pytest.raises(NotImplementedError):
         create_model("fpn")
     # the hparams keys the JAX trainer writes are all accepted

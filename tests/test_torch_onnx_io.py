@@ -14,6 +14,11 @@ through ONNX and back.
   (tests/test_onnx_io.py:236-250).
 - The real TorchScript exporter's bytes, both flavors, under the skip
   condition of tests/test_onnx_torch_export_oracle.py.
+- The model zoo: unet, unet++ and resunet on resnet18 and resunet++ on
+  timm-efficientnet-b0 (64², the JAX converter tests' decoder widths)
+  through the writer, fused and unfused, and resunet++ through the real
+  exporter, whose fused bytes fold the last gate's BatchNorm across its
+  Sequential.
 """
 
 import sys
@@ -24,9 +29,16 @@ import pytest
 import torch
 
 from deadtrees_tpu.models import onnx_io as jax_onnx_io
-from deadtrees_tpu_torch.models import create_model, init_model, onnx_io
+from deadtrees_tpu_torch.models import (
+    create_model,
+    init_model,
+    onnx_io,
+    state_dict_from_variables,
+    tensor_variables_from_state_dict,
+)
 from tests.test_convert_flagship import DEC_CH
 from tests.test_onnx_io import _randomize_bn
+from tests.test_torch_models import fill_tree
 
 HP = dict(architecture="efficientunet++", encoder_name="timm-efficientnet-b0",
           decoder_channels=DEC_CH, in_channels=4, classes=3)
@@ -168,3 +180,77 @@ def test_real_export_round_trip(tmp_path, fold):
     got, want = _logits(_load_recovered(sd)), _logits(model)
     assert np.abs(got - want).max() < 3e-3, np.abs(got - want).max()
     np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+
+
+# ---------------------------------------------------------------------------
+# the model zoo
+# ---------------------------------------------------------------------------
+
+ZOO_ENCODER = {"unet": "resnet18", "unet++": "resnet18", "resunet": "resnet18",
+               "resunet++": "timm-efficientnet-b0"}
+ZOO_DEC_CH = (16, 16, 8, 8, 8)
+
+
+def _zoo_model(arch, seed=None):
+    """A float32 port model of the zoo; with ``seed``, the JAX tests'
+    numpy weights (BatchNorm statistics randomized, small biases) filled
+    into its tree, else uninitialized on the meta device."""
+    kw = dict(in_channels=4, classes=3, decoder_channels=ZOO_DEC_CH, dtype=torch.float32)
+    if seed is None:
+        return create_model(arch, ZOO_ENCODER[arch], **kw).eval()
+    with torch.device("meta"):
+        model = create_model(arch, ZOO_ENCODER[arch], **kw)
+    tree = fill_tree(tensor_variables_from_state_dict(model.state_dict()), seed)
+    model.load_state_dict(state_dict_from_variables(tree), assign=True)
+    return model.eval()
+
+
+def _zoo_recovered(arch, sd):
+    model = _zoo_model(arch)
+    want = {k for k in model.state_dict() if not k.endswith("num_batches_tracked")}
+    assert set(sd) == want, (sorted(want - set(sd))[:5], sorted(set(sd) - want)[:5])
+    full = dict(model.state_dict())
+    full.update({k: torch.from_numpy(np.array(v)) for k, v in sd.items()})
+    model.load_state_dict(full, strict=True)
+    return model
+
+
+def _close(got, want):
+    err = np.abs(got - want).max()
+    assert err < 3e-3 * max(1.0, np.abs(want).max()), err
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+
+
+@pytest.mark.parametrize("fuse_bn", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("arch", list(ZOO_ENCODER))
+def test_reader_recovers_the_zoo(arch, fuse_bn):
+    model = _zoo_model(arch, seed=7)
+    graph = onnx_io.read_onnx(onnx_io.onnx_from_torch_modules(model, fuse_bn=fuse_bn))
+    sd, report = onnx_io.state_dict_from_onnx(graph)
+    assert report["fused_graph"] == fuse_bn
+    # the ResNet's fixed convention, the EfficientNet's default
+    resnet = ZOO_ENCODER[arch] == "resnet18"
+    assert report["encoder_bn_eps_used"] == (1e-5 if resnet else 1e-3)
+    if not fuse_bn:
+        want = model.state_dict()
+        for k, v in sd.items():
+            np.testing.assert_array_equal(v, want[k].numpy(), err_msg=k)
+    else:
+        stem = ("encoder.conv1", "encoder.bn1") if resnet else (
+            "encoder.conv_stem", "encoder.bn1")
+        block = "x_0_0" if arch == "unet++" else "0"
+        assert stem in report["defused_pairs"]
+        assert (f"decoder.blocks.{block}.conv1.0",
+                f"decoder.blocks.{block}.conv1.1") in report["defused_pairs"]
+    _close(_logits(_zoo_recovered(arch, sd)), _logits(model))
+
+
+def test_real_export_of_resunetpp(tmp_path):
+    model = _zoo_model("resunet++", seed=8)
+    path = tmp_path / "resunetpp.onnx"
+    _real_export(model, path, True)
+    sd, report = onnx_io.state_dict_from_onnx(onnx_io.read_onnx(path))
+    assert report["fused_graph"]
+    assert ("decoder.blocks.4.attention0.decoder_conv.2",
+            "decoder.blocks.4.attention0.attn_conv.0") in report["defused_pairs"]
+    _close(_logits(_zoo_recovered("resunet++", sd)), _logits(model))
