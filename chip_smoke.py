@@ -207,6 +207,38 @@ Phases (each raises on failure, so the script exits non-zero):
    artifact's maps against the plain engine's. One ``zoo`` JSON line a
    configuration comes before the kernels line.
 
+18. Data parallelism (eager, in child processes: this process joins no
+   group; run after phase 17, while phase 15's warmers finish, as phase
+   17 does: its children peak at 2 × 19.25 GiB, beside the warmers'
+   memory and before phase 14's 74 GiB batch). The flagship at full width. NCCL with one rank (a
+   child): 8 bf16 train steps of phase 8's first batch (bs 16) under a
+   one-rank NCCL group bit-equal to the same steps without a group, cuDNN
+   deterministic (with one rank the port calls no collective: the steps
+   are the same code); one NCCL all_reduce of the flat gradient buffer
+   timed; the one-process float32 step on that batch's first 4 samples
+   saved. Two gloo ranks on the card (``torch.distributed.run
+   --standalone --nproc-per-node 2``): the float32 step of the two ranks
+   (2 samples each) against the one-process step (loss and grad norm
+   within 1e-4 relative; the clipped gradient no further than 2 × the
+   one-process step's from a float64 step of the same model and batch; at
+   most 0.1 % of the parameters an update of the other sign apart; the
+   ranks equal); one gloo all_reduce
+   of the flat gradient buffer timed; 16 noise scenes of 2048² through
+   ``predict_scenes`` with a 2-rank ``make_scene_predictor(mesh=)`` at bs
+   128 (64 a rank), agreeing ≥ 0.99 with phase 12's maps of the same
+   scenes, and their tiles/s. The recipe's trainer through ``python -m
+   torch.distributed.run ... -m deadtrees_tpu_torch train --backend gloo
+   trainer.devices=2`` (global bs 16, 8 a rank, 8 shards of 32 noise
+   tiles in phase 8's format: 4 a rank, 2 epochs of 4 steps, SWA from
+   epoch 1): the
+   ranks' parameters equal after every epoch (the trainer's own check),
+   the loss falls, kernel 4 once a batch on each rank (8 steps + 10
+   recalibration batches), one metrics file and the checkpoints (rank 0
+   writes them), the val metrics equal on both ranks, each rank's peak
+   memory. A ``parallel`` line with these numbers, the phase's seconds
+   and the card comes before the kernels line. Two ranks share one card:
+   the numbers measure the path, not a speed-up.
+
 The last line is the device record; the line before it the card's name
 and power limit, and before that one JSON object describing the kernels
 (the contract's keys, plus ``tc_bound_ms`` and ``f32_bound_ms`` for every
@@ -1524,14 +1556,14 @@ def _tiff(arr: np.ndarray, mode: str) -> bytes:
     return buf.getvalue()
 
 
-def write_train_shards(root: Path, test: int = 0) -> None:
-    """Two train shards of 32 and a val shard of 32 samples (and ``test``
-    test samples): 512² RGBN TIFF tiles, masks of random rectangles of
-    classes 1 and 2, lu layers."""
+def write_train_shards(root: Path, test: int = 0, train: int = 64) -> None:
+    """Train shards of 32 (two by default) and a val shard of 32 samples
+    (and ``test`` test samples): 512² RGBN TIFF tiles, masks of random
+    rectangles of classes 1 and 2, lu layers."""
     from deadtrees_tpu_torch.data.shardwriter import ShardWriter
 
     rng = np.random.default_rng(SEED + 9)
-    for split, n in (("train", 64), ("val", 32), ("test", test)):
+    for split, n in (("train", train), ("val", 32), ("test", test)):
         if not n:
             continue
         with ShardWriter(str(root / split / "train-combo-%06d.tar"), maxcount=32) as w:
@@ -1888,6 +1920,7 @@ def phase_scenes(path: Path, hp, plain, plain_bs128_ms: float, card: str) -> dic
                                  f"{int((batched[i] != single).sum())} pixels differ")
     log(f"predict_scenes on 17 scenes of {SCENE}² (groups 8, 8, 1 + 7 zero scenes) "
         f"equal to 17 predict_scene calls; {t_batched:.3f} s (first call)")
+    np.save(DP_MAPS, np.stack(batched[:DP_SCENES]))  # phase 18 holds its sharded maps to these
     del batched
 
     # throughput: 16 scenes, median of 3 after a warm-up
@@ -3632,6 +3665,455 @@ def phase_zoo(card: str, configs=ZOO) -> list:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 18
+# ---------------------------------------------------------------------------
+
+DP_DIR = REPO / "build" / "chip_smoke" / "dp"
+DP_MAPS = REPO / "build" / "chip_smoke" / "scenes16_maps.npy"  # phase 12's 16 maps
+DP_STEPS = 8
+DP_F32_BS = 4  # the float32 comparison's global batch (2 a rank)
+DP_EPOCHS = 2
+DP_SCENES = 16
+DP_TIMEOUT = 420  # seconds a child of phase 18 may take
+DP_AGREE = 0.99  # tests/test_spatial_parallel.py:43 (mismatch < 1e-2)
+# the float32 step of two ranks against one process on the card: the share of
+# the parameters allowed an update of the other sign apart (0.058 % in the
+# first runs), and how much further from a float64 step the two ranks' clipped
+# gradient may lie than the one-process step's (float32 convolutions over 512²
+# put both about 1e-3 of the largest element away, in the stem and the first
+# blocks; the ranks 1.175e-3, one process 1.491e-3)
+DP_F32_SHARE = 1e-3
+DP_F64_RATIO = 2.0
+OPT_CLIP = 0.5  # gradient_clip_val of the recipe (train_config)
+
+
+def _dp_flat(model) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([t.detach().reshape(-1).float() for t in model.state_dict().values()])
+
+
+def _dp_batch():
+    """Phase 8's first train batch (bs 16: decode, kernel 4, EDT), one
+    generator seed, on the card."""
+    import torch
+
+    from deadtrees_tpu_torch.train import Trainer
+
+    trainer = Trainer(train_config(REPO / "build" / "chip_smoke" / "train" / "data"),
+                      work_dir=DP_DIR / "batch")
+    trainer._build()
+    with contextlib.closing(trainer.datamodule.train_batches(
+            torch.Generator().manual_seed(SEED + 18))) as batches:
+        batch = next(batches)
+    return {k: batch[k] for k in ("image", "mask", "distmap")}
+
+
+def _dp_steps(batch, steps: int = DP_STEPS):
+    """A fresh flagship trainer (the seed's weights) takes ``steps`` train
+    steps on ``batch``; returns its parameters and buffers, flat."""
+    import torch
+
+    from deadtrees_tpu_torch.train import Trainer
+
+    trainer = Trainer(train_config(REPO / "build" / "chip_smoke" / "train" / "data"),
+                      work_dir=DP_DIR / "steps")
+    trainer._build()
+    for _ in range(steps):
+        trainer.train_step(trainer.state, batch, 1)
+    torch.cuda.synchronize()
+    flat = _dp_flat(trainer.model).cpu()
+    del trainer
+    torch.cuda.empty_cache()
+    return flat
+
+
+def _dp_f32_step(batch, mesh=None):
+    """One float32 step of the flagship (seed's weights) on ``batch`` (this
+    rank's slice under ``mesh``): (metrics, Adam's first moment, the
+    parameters and buffers), flat, on the host."""
+    import torch
+
+    from deadtrees_tpu_torch.models import create_model, init_model
+    from deadtrees_tpu_torch.train import (
+        OptimizerConfig,
+        TrainState,
+        build_loss,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = train_config(Path("."))
+    net = cfg["model"]["network"]
+    model = create_model(net["architecture"], net["encoder_name"],
+                         decoder_channels=net["decoder_channels"], in_channels=4, classes=3,
+                         dtype=torch.float32)
+    model = init_model(model, generator=torch.Generator().manual_seed(SEED)).cuda()
+    state = TrainState(model, make_optimizer(model.parameters(), OptimizerConfig(steps_per_epoch=1)))
+    step = make_train_step(model, build_loss(net["losses"], 3), num_classes=3, mesh=mesh)
+    _, metrics = step(state, batch, 1)
+    torch.cuda.synchronize()
+    out = ({k: float(v) for k, v in metrics.items()},
+           torch.cat([m.reshape(-1) for m in state.optimizer.mu]).cpu(), _dp_flat(model).cpu())
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_f64_mu(batch):
+    """Adam's first moment after the one-process step of
+    :func:`_dp_f32_step`, from a float64 forward and backward of the same
+    model and batch (the clipped gradient × 0.1): the reference that both
+    float32 steps are measured against."""
+    import torch
+
+    from deadtrees_tpu_torch.losses import class2one_hot
+    from deadtrees_tpu_torch.models import create_model, init_model
+    from deadtrees_tpu_torch.train import build_loss
+
+    net = train_config(Path("."))["model"]["network"]
+    model = create_model(net["architecture"], net["encoder_name"],
+                         decoder_channels=net["decoder_channels"], in_channels=4, classes=3,
+                         dtype=torch.float32)
+    model = init_model(model, generator=torch.Generator().manual_seed(SEED)).cuda().double()
+    model.train()
+    b = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    logits = model(b["image"])
+    probs = torch.softmax(logits, 1)
+    total, _ = build_loss(net["losses"], 3)(probs, class2one_hot(b["mask"], 3).double(),
+                                            logits=logits, distmap=b["distmap"], epoch=1)
+    grads = torch.autograd.grad(total, list(model.parameters()))
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    scale = min(1.0, OPT_CLIP / float(flat.norm()))
+    out = (0.1 * scale * flat).float().cpu()
+    del model, logits, probs, total, grads, flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def _event_ms(fn, reps: int) -> float:
+    import torch
+
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def dp_nccl1() -> int:
+    """Child 1 of phase 18 (no group, then a one-rank NCCL group): 8 bf16
+    steps at bs 16 with and without the group (deterministic cuDNN), the
+    NCCL all-reduce of the flat gradient buffer, and the one-process
+    float32 step that the two ranks are held to."""
+    import torch
+    import torch.distributed as dist
+
+    from deadtrees_tpu_torch.parallel import create_mesh
+
+    set_precision()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    batch = _dp_batch()
+    t0 = time.perf_counter()
+    a = _dp_steps(batch)
+    out["steps_s"] = time.perf_counter() - t0
+    port = int(os.environ["DP_PORT"])
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    mesh = create_mesh(1)
+    b = _dp_steps(batch)
+    out["nccl1_bit_equal"] = bool(torch.equal(a, b))
+    out["nccl1_max_abs"] = float((a - b).abs().max())
+    n = sum(p.numel() for p in _dp_model_params())
+    buf = torch.randn(n, device="cuda")
+    out["grad_buffer_bytes"] = n * 4
+    out["nccl1_all_reduce_ms"] = _event_ms(lambda: dist.all_reduce(buf, group=mesh.group), 10)
+    del buf
+    dist.destroy_process_group()
+    if not out["nccl1_bit_equal"]:  # the bar becomes the spread of two runs without a group
+        out["spread_no_group"] = float((a - _dp_steps(batch)).abs().max())
+    small = {k: v[:DP_F32_BS].contiguous() for k, v in batch.items()}
+    torch.save(small, DP_DIR / "f32_batch.pt")
+    torch.save(_dp_f32_step(small), DP_DIR / "f32_ref.pt")
+    torch.save(_dp_f64_mu(small), DP_DIR / "f64_mu.pt")
+    # the spread of the one-process step itself: cuDNN's other algorithms
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    torch.save(_dp_f32_step(small)[1], DP_DIR / "f32_ref_mu2.pt")
+    (DP_DIR / "nccl1.json").write_text(json.dumps(out))
+    return 0
+
+
+def _dp_named_params():
+    import torch
+
+    from deadtrees_tpu_torch.models import create_model
+
+    net = train_config(Path("."))["model"]["network"]
+    with torch.device("meta"):
+        model = create_model(net["architecture"], net["encoder_name"],
+                             decoder_channels=net["decoder_channels"], in_channels=4, classes=3)
+    return list(model.named_parameters())
+
+
+def _dp_model_params():
+    return [p for _, p in _dp_named_params()]
+
+
+def dp_ranks() -> int:
+    """Child 2 of phase 18, one of two gloo ranks on the card: the float32
+    step against the one-process step, the gloo all-reduce of the flat
+    gradient buffer, and 16 scenes through the sharded predictor."""
+    import torch
+    import torch.distributed as dist
+
+    from deadtrees_tpu_torch.infer import TorchInference, make_scene_predictor, predict_scenes
+    from deadtrees_tpu_torch.parallel import create_mesh, distributed_init, shard_batch
+    from deadtrees_tpu_torch.train import OptimizerConfig
+
+    set_precision()
+    distributed_init(backend="gloo")
+    mesh = create_mesh(2)
+    out = {"rank": mesh.rank}
+    batch = shard_batch(torch.load(DP_DIR / "f32_batch.pt"), mesh)
+    metrics, mu, flat = _dp_f32_step(batch, mesh)
+    ref_metrics, ref_mu, ref_flat = torch.load(DP_DIR / "f32_ref.pt")
+    out["f32_rel"] = {k: abs(metrics[k] - v) / max(abs(v), 1e-12)
+                      for k, v in ref_metrics.items()}
+    floor = 1e-4 * float(ref_mu.abs().max())
+    out["f32_mu_over_bar"] = int(((mu - ref_mu).abs() > 1e-4 * ref_mu.abs() + floor).sum())
+    out["f32_mu_max_rel"] = float((mu - ref_mu).abs().max()) / float(ref_mu.abs().max())
+    f64 = torch.load(DP_DIR / "f64_mu.pt")
+    top = float(f64.abs().max())
+    out["f32_ref_vs_f64"] = float((ref_mu - f64).abs().max()) / top
+    out["f32_ranks_vs_f64"] = float((mu - f64).abs().max()) / top
+    names = [n for n, _ in _dp_named_params()]
+    sizes = [p.numel() for _, p in _dp_named_params()]
+    worst = []
+    for name, a, r, t in zip(names, mu.split(sizes), ref_mu.split(sizes), f64.split(sizes)):
+        worst.append((float((a - t).abs().max()) / top, float((r - t).abs().max()) / top,
+                      float(t.abs().max()) / top, name))
+    out["f32_worst_vs_f64"] = sorted(worst, reverse=True)[:6]
+    mu2 = torch.load(DP_DIR / "f32_ref_mu2.pt")
+    out["f32_ref_over_bar"] = int(((mu2 - ref_mu).abs() > 1e-4 * ref_mu.abs() + floor).sum())
+    out["f32_ref_max_rel"] = float((mu2 - ref_mu).abs().max()) / float(ref_mu.abs().max())
+    d = (flat - ref_flat).abs()
+    out["f32_param_max_abs"] = float(d.max())
+    lr = OptimizerConfig().learning_rate
+    out["f32_param_flips"] = int((d > lr).sum())  # an update of the other sign (±lr)
+    out["f32_params"] = d.numel()
+    same = torch.tensor([float(flat.double().sum()), float(flat.double().square().sum())])
+    both = torch.cat([same, -same])
+    dist.all_reduce(both, op=dist.ReduceOp.MAX)
+    out["f32_ranks_equal"] = bool(torch.equal(both[:2], -both[2:]))
+
+    n = sum(p.numel() for p in _dp_model_params())
+    buf = torch.randn(n, device="cuda")
+    out["gloo2_all_reduce_ms"] = _event_ms(lambda: dist.all_reduce(buf), 3)
+    del buf
+
+    engine = TorchInference(REPO / "build" / "chip_smoke" / "flagship_b5.ckpt")
+    rng = np.random.default_rng(SEED + 30)  # phase 12's draws: the ragged scene, then 17
+    rng.integers(0, 256, SCENE_RAGGED + (4,), dtype=np.uint8)
+    scenes = list(rng.integers(0, 256, (17, SCENE, SCENE, 4), dtype=np.uint8)[:DP_SCENES])
+    predictor = make_scene_predictor(engine.model, subtile=IMG, batch_size=SCENE_BS, mesh=mesh,
+                                     packed=True)
+    kw = dict(tile_shape=(SCENE, SCENE), subtile=IMG, batch_size=SCENE_BS, predictor=predictor)
+    maps = predict_scenes(engine.model, scenes, **kw)
+    want = np.load(DP_MAPS)
+    out["scene_agreement"] = float(np.mean([(m == w).mean() for m, w in zip(maps, want)]))
+    times = []
+    for _ in range(3):
+        dist.all_reduce(torch.zeros(1))  # the ranks start together
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_scenes(engine.model, scenes, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["scene_tiles_per_s"] = DP_SCENES * (SCENE // IMG) ** 2 / statistics.median(times)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    (DP_DIR / f"ranks_{mesh.rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_run(args, name: str, env=None) -> float:
+    """Run a child of phase 18 in a session of its own, killed at
+    DP_TIMEOUT; its output in DP_DIR/name.log. Returns its seconds."""
+    log_path = DP_DIR / f"{name}.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(args, cwd=REPO, stdout=f, stderr=subprocess.STDOUT,
+                                env={**os.environ, **(env or {})}, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise AssertionError(f"phase 18: {name} overran {DP_TIMEOUT} s; {log_path}")
+    if rc != 0:
+        tail = log_path.read_text()[-3000:]
+        raise AssertionError(f"phase 18: {name} exited {rc}:\n{tail}")
+    return time.perf_counter() - t0
+
+
+def _torchrun(*args) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "2", *args]
+
+
+def _dp_data() -> Path:
+    """8 train shards of 32 noise tiles (4 a rank) and a val shard, in
+    phase 8's format (phase 14's shards are written after this phase)."""
+    data = DP_DIR / "data"
+    write_train_shards(data, train=8 * 32)
+    return data
+
+
+def _rank_logs(log_dir: Path) -> dict:
+    """{rank: the rank's stderr} of a torchrun with --log-dir and --redirects 3."""
+    logs = {}
+    for path in log_dir.rglob("stderr.log"):
+        logs[int(path.parent.name)] = path.read_text()
+    if sorted(logs) != [0, 1]:
+        raise AssertionError(f"phase 18: rank logs {sorted(logs)} under {log_dir}")
+    return logs
+
+
+def phase_parallel(card: str, train: dict) -> dict:
+    """Data parallelism on the card, in child processes (this process
+    joins no group): NCCL with one rank against no group, two gloo ranks
+    (the float32 step, the recipe's trainer through torchrun and the CLI,
+    sharded scenes). Returns the numbers of the parallel line."""
+    import ast
+    import csv
+
+    from deadtrees_tpu_torch.train.trainer import SWA_BN_BATCHES
+
+    t_phase = time.perf_counter()
+    if DP_DIR.exists():
+        shutil.rmtree(DP_DIR)
+    DP_DIR.mkdir(parents=True)
+    out = {"card": card}
+    port = _free_port()
+    out["nccl1_s"] = _dp_run([sys.executable, str(REPO / "chip_smoke.py"), "--dp", "nccl1"],
+                             "nccl1", {"DP_PORT": str(port)})
+    one = json.loads((DP_DIR / "nccl1.json").read_text())
+    out.update(one)
+    if one["nccl1_bit_equal"]:
+        log(f"phase 18: {DP_STEPS} bf16 steps at bs {TRAIN_BS} under a one-rank NCCL group "
+            f"bit-equal to the same steps without a group (cuDNN deterministic)")
+    elif one["nccl1_max_abs"] > one["spread_no_group"]:
+        raise AssertionError(f"phase 18: NCCL with one rank differs by {one['nccl1_max_abs']}, "
+                             f"two runs without a group by {one['spread_no_group']}")
+    log(f"phase 18: one all_reduce of the flat gradient buffer ({one['grad_buffer_bytes']} "
+        f"bytes), NCCL, one rank: {one['nccl1_all_reduce_ms']:.3f} ms on {card}")
+
+    out["ranks_s"] = _dp_run(_torchrun(str(REPO / "chip_smoke.py"), "--dp", "ranks"), "ranks")
+    ranks = [json.loads((DP_DIR / f"ranks_{r}.json").read_text()) for r in (0, 1)]
+    for r in ranks:
+        bad = {k: v for k, v in r["f32_rel"].items() if k in ("total_loss", "grad_norm")
+               and v > 1e-4}
+        if bad or not r["f32_ranks_equal"]:
+            raise AssertionError(f"phase 18: float32 step of rank {r['rank']}: {r}")
+        if (r["f32_param_flips"] > DP_F32_SHARE * r["f32_params"]
+                or r["f32_ranks_vs_f64"] > DP_F64_RATIO * r["f32_ref_vs_f64"]):
+            raise AssertionError(f"phase 18: float32 gradient / parameters of rank "
+                                 f"{r['rank']}: {r}")
+        if r["scene_agreement"] < DP_AGREE:
+            raise AssertionError(f"phase 18: sharded scenes agree {r['scene_agreement']}")
+    r0 = ranks[0]
+    out.update({k: r0[k] for k in ("f32_rel", "f32_mu_over_bar", "f32_mu_max_rel",
+                                   "f32_ref_over_bar", "f32_ref_max_rel", "f32_ref_vs_f64",
+                                   "f32_ranks_vs_f64", "f32_worst_vs_f64",
+                                   "f32_param_max_abs", "f32_params",
+                                   "f32_param_flips", "gloo2_all_reduce_ms",
+                                   "scene_agreement", "scene_tiles_per_s")})
+    out["ranks_peak_gib"] = [r["peak_gib"] for r in ranks]
+    log(f"phase 18: float32 step of 2 gloo ranks (global bs {DP_F32_BS}) against one process: "
+        f"rel. error {r0['f32_rel']}, gradient elements over the bar {r0['f32_mu_over_bar']} "
+        f"(largest error {r0['f32_mu_max_rel']:.3e} of the largest element; two one-process "
+        f"steps with other cuDNN algorithms: {r0['f32_ref_over_bar']}, "
+        f"{r0['f32_ref_max_rel']:.3e}; largest error against a float64 step: one process "
+        f"{r0['f32_ref_vs_f64']:.3e}, two ranks {r0['f32_ranks_vs_f64']:.3e}; worst tensors "
+        f"(ranks, one process, size; of the largest element) {r0['f32_worst_vs_f64']}), "
+        f"parameters max |d| {r0['f32_param_max_abs']:.3e}, {r0['f32_param_flips']} of "
+        f"{r0['f32_params']} a step of the other sign; the ranks equal")
+    log(f"phase 18: one all_reduce of the flat gradient buffer, gloo, two ranks on one card: "
+        f"{r0['gloo2_all_reduce_ms']:.3f} ms; {DP_SCENES} scenes of {SCENE}² through "
+        f"predict_scenes, 2 ranks x {SCENE_BS // 2} subtiles a chunk: agreement with phase 12 "
+        f"{r0['scene_agreement']:.6f}, {r0['scene_tiles_per_s']:.2f} tiles/s (two ranks share "
+        f"one card: the path, not a speed-up)")
+
+    data = _dp_data()
+    run_dir = DP_DIR / "run"
+    log_dir = DP_DIR / "torchrun_logs"
+    overrides = ["experiment=flagship_b5_multistage", f"data_dir={data}", f"run_dir={run_dir}",
+                 f"logger.save_dir={run_dir / 'metrics'}", "trainer.devices=2",
+                 f"trainer.max_epochs={DP_EPOCHS}", f"trainer.limit_train_batches={TRAIN_STEPS}",
+                 f"trainer.limit_val_batches={VAL_STEPS}", "callbacks.multistage.unfreeze_epoch=0",
+                 "callbacks.multistage.lr_reduce_epoch=null", "callbacks.swa.swa_epoch_start=1",
+                 f"datamodule.batch_size={TRAIN_BS}", "logger.kind=csv", "print_config=false"]
+    out["train_s"] = _dp_run(_torchrun("--log-dir", str(log_dir), "--redirects", "3", "-m",
+                                       "deadtrees_tpu_torch", "train", "--backend", "gloo",
+                                       *overrides), "train")
+    logs = _rank_logs(log_dir)
+    metrics_files = list(run_dir.rglob("metrics.csv"))
+    ckpts = sorted(p.name for p in run_dir.rglob("*.ckpt"))
+    if len(metrics_files) != 1 or "last.ckpt" not in ckpts or "swa.ckpt" not in ckpts:
+        raise AssertionError(f"phase 18: metrics files {metrics_files}, checkpoints {ckpts}")
+    with open(metrics_files[0]) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["train/total_loss"]) for r in rows]
+    if len(rows) != DP_EPOCHS or any(float(r["replicas_equal"]) != 1.0 for r in rows) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 18: the 2-rank fit's metrics {rows}")
+    vals, launches, peaks = {}, {}, {}
+    for rank, text in logs.items():
+        vals[rank] = re.findall(r"epoch (\d+), rank \d+: val (\{.*\})", text)
+        m = re.search(r"rank \d of 2: (\d+) steps, kernel launches (\{.*?\}), peak device "
+                      r"memory ([\d.]+) GiB", text)
+        if m is None:
+            raise AssertionError(f"phase 18: no launch line in rank {rank}'s log")
+        launches[rank] = ast.literal_eval(m.group(2))[AUGMENT]
+        peaks[rank] = float(m.group(3))
+        steps = int(m.group(1))
+    if vals[0] != vals[1] or len(vals[0]) != DP_EPOCHS:
+        raise AssertionError(f"phase 18: the ranks' val metrics differ: {vals}")
+    want = DP_EPOCHS * TRAIN_STEPS + SWA_BN_BATCHES
+    if steps != DP_EPOCHS * TRAIN_STEPS or set(launches.values()) != {want}:
+        raise AssertionError(f"phase 18: kernel 4 launches {launches}, want {want} a rank "
+                             f"({steps} steps + {SWA_BN_BATCHES} recalibration batches)")
+    step_ms = 1e3 / float(rows[-1]["steps_per_sec"])
+    out.update(train_losses=losses, train_val=[ast.literal_eval(v) for _, v in vals[0]],
+               train_launches=launches, train_peak_gib=peaks, train_step_ms=step_ms,
+               phase8_step_ms=train["step_ms"])
+    log(f"phase 18: the recipe's trainer on 2 gloo ranks through torchrun and the CLI "
+        f"(global bs {TRAIN_BS}, {TRAIN_BS // 2} a rank, {DP_EPOCHS} epochs of {TRAIN_STEPS} "
+        f"steps, SWA from epoch 1): train loss {losses}, val equal on both ranks, parameters "
+        f"equal after every epoch, kernel 4 {launches} ({steps} steps + {SWA_BN_BATCHES} "
+        f"recalibration batches a rank), peak memory {peaks} GiB; epoch {DP_EPOCHS - 1} at "
+        f"{step_ms:.1f} ms a step (data included) against phase 8's one-process bs-"
+        f"{TRAIN_BS} step of {train['step_ms']:.1f} ms (two ranks share one card)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {out['phase_s']:.1f} s on {card}")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     import torch
 
@@ -3646,6 +4128,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if sys.argv[1:2] == ["--warm"]:
         return warm(sys.argv[2])
+    if sys.argv[1:2] == ["--dp"]:
+        return {"nccl1": dp_nccl1, "ranks": dp_ranks}[sys.argv[2]]()
     t_start = time.perf_counter()
     from deadtrees_tpu_torch.core.compile_opts import disable_compile
     from deadtrees_tpu_torch.data.tar import NATIVE_FALLBACKS
@@ -3692,6 +4176,7 @@ def main() -> int:
             exported = phase_export(ckpt, card)
             zoo = phase_zoo(card)
             torch.cuda.empty_cache()
+            parallel = phase_parallel(card, train)
             cold = join_warmers(warmers, 1200)
             data = phase_data(card, train)
         torch.cuda.empty_cache()
@@ -3741,6 +4226,7 @@ def main() -> int:
                                         script_s=time.perf_counter() - t_start)))
     for line in zoo:
         print("zoo " + json.dumps(dict(line, card=card)))
+    print("parallel " + json.dumps(dict(parallel, script_s=time.perf_counter() - t_start)))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

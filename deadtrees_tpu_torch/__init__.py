@@ -5,10 +5,10 @@ and public names, in PyTorch idiom (NCHW ``nn.Module``s with the reference
 smp state-dict layout, explicit devices and generators). Its entry points
 run on a CUDA device unless the caller asks for ``device="cpu"``.
 
-Subpackages ported so far (the serving, scene and training paths of the
-model of record):
+Subpackages (every module of the JAX package has its counterpart):
     data    — dataset constants, augmentation, tar shards, the data module
-    models  — EfficientUnet++ on the EfficientNet-b0..b7 encoders
+    models  — the model zoo: EfficientUnet++, Unet, Unet++, ResUnet,
+              ResUnet++ on the EfficientNet and ResNet encoders; SegFormer
     ops     — the fused, BN-folded decoder InvertedResidual, its NHWC pair,
               the depthwise conv and the fused colour jitter + normalize
               (hand-written CUDA kernels, built at first CUDA use)
@@ -19,8 +19,10 @@ model of record):
     core    — checkpoint files in the JAX package's ``DTPU1`` format, the
               asynchronous writer
     infer   — ``TorchInference``, TTA, quantization, scenes, the ensemble
-    geo     — retile and mosaic
-    serve   — the REST segmentation service
+    geo     — retile, mosaic, shapefiles, rasterization
+    parallel — data parallelism over torch.distributed (one process a
+              device): the mesh, replication, the global batch
+    serve   — the REST segmentation service and its Streamlit UI
     config  — Hydra-style YAML composition of the repo's ``configs/``
     visualization — sample grids and confusion-matrix figures
     utils   — env, logging, timer

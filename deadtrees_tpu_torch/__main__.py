@@ -2,7 +2,10 @@
 
 Counterpart of ``python -m deadtrees_tpu``: ``train`` and ``eval`` take
 the config overrides (``key=value``) of the JAX CLI, and ``--device``
-(CUDA by default; ``--device cpu`` runs on the CPU). ``export CHECKPOINT
+(CUDA by default; ``--device cpu`` runs on the CPU) and, under
+``python -m torch.distributed.run --nproc-per-node N``, ``--backend``
+(``nccl`` or ``gloo``; default NCCL on CUDA, gloo on the CPU).
+``export CHECKPOINT
 [OUTFILE] [--image-size N]`` is the JAX package's
 ``scripts/create_export.py``: it writes the exported inference artifact
 (``infer/export.py``), by default next to the checkpoint with the suffix
@@ -23,6 +26,9 @@ def main(argv=None) -> int:
         p.add_argument("overrides", nargs="*", help="config overrides key=value")
         p.add_argument("--device", default=None,
                        help="torch device (default: cuda; 'cpu' runs on the CPU)")
+        p.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                       help="process-group backend under torch.distributed.run "
+                            "(default: nccl on CUDA, gloo on the CPU)")
 
     p = sub.add_parser("export", help="write the exported inference artifact")
     p.add_argument("checkpoint", type=Path)
@@ -41,12 +47,12 @@ def main(argv=None) -> int:
     if args.command == "train":
         from deadtrees_tpu_torch.train.entry import train_from_cli
 
-        train_from_cli(args.overrides, device=args.device)
+        train_from_cli(args.overrides, device=args.device, backend=args.backend)
         return 0
     if args.command == "eval":
         from deadtrees_tpu_torch.train.entry import eval_from_cli
 
-        eval_from_cli(args.overrides, device=args.device)
+        eval_from_cli(args.overrides, device=args.device, backend=args.backend)
         return 0
     if args.command == "export":
         from deadtrees_tpu_torch.infer.export import SUFFIX, export_inference

@@ -1,6 +1,6 @@
 """Input pipeline: shards → host decode → pinned upload → augment on the card.
 
-Counterpart of ``deadtrees_tpu.data.pipeline`` for one process:
+Counterpart of ``deadtrees_tpu.data.pipeline``:
 
 - background producer threads stream and decode tar samples
   (``data/tar.py``; by default through the native C++ reader on
@@ -26,8 +26,23 @@ Counterpart of ``deadtrees_tpu.data.pipeline`` for one process:
   ``cache_dir`` a remote shard is copied there on first touch (``setup``
   primes the cache with the probe shard) and later epochs read the copy.
 
-Several processes (``process_count > 1``: the disjoint train shards and
-the eval slicing) are not ported yet and raise ``NotImplementedError``.
+Several processes (the ranks of a data-parallel run, ``parallel/mesh.py``):
+``process_index`` / ``process_count`` come from the config's override,
+else from the process group, else 0 and 1 (the override needs no group,
+so one process can play any rank). Each rank yields its LOCAL slice of
+every global batch (``local_batch_size = batch_size // process_count``;
+the count must divide the batch size and each part of it):
+
+- train shards go round-robin and disjoint, ``train_shards[pi::pc]`` (a
+  rank with none raises), the extra datasets' ``[pi::pc]`` (or all of
+  them when there are fewer shards than ranks); each part of a batch is
+  its size over ``pc``; the rank is folded into the stream seed and the
+  augmentation generator, so the ranks' streams differ;
+- ``steps_per_epoch`` is the minimum over the ranks, so that no rank
+  waits in a collective for one whose stream ran dry;
+- every rank streams the same raw eval and test batches (the same order
+  and end) and decodes only its slice of each, which may span the main
+  and extra parts (``tar.materialize_samples``).
 """
 
 from __future__ import annotations
@@ -35,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional, Sequence, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,10 +63,9 @@ from deadtrees_tpu_torch.data.tar import (
     count_shard_samples,
     is_remote_shard,
     make_sample_stream,
+    materialize_samples,
 )
 from deadtrees_tpu_torch.losses.functional import batch_one_hot2dist, class2one_hot
-
-_QUEUED = "(ROADMAP.md, queue 1, item 8)"
 
 
 @dataclasses.dataclass
@@ -73,6 +87,8 @@ class DataConfig:
     # local copies of REMOTE shards (pipe:/http): epoch 1 streams them into
     # the cache, later epochs (and the native reader) read the copy
     cache_dir: Optional[str] = None
+    # the ranks of a data-parallel run; None: the process group's (0 and 1 without one)
+    process_index: Optional[int] = None
     process_count: Optional[int] = None
     device: Union[str, torch.device, None] = None  # CUDA unless asked otherwise
 
@@ -95,6 +111,7 @@ def _concat_parts(parts: List[Dict], pin: bool) -> Dict:
     """One host batch from its parts [main, *extras], in that order, into
     pinned memory when ``pin``; ``lu`` (when the main part has it) is zero
     for a part without it."""
+    parts = [p for p in parts if p]  # {}: a part whose samples are all other ranks'
     keys = ["image", "mask"] + (["lu"] if "lu" in parts[0] else [])
     out: Dict = {"files": [f for p in parts for f in p["files"]]}
     for k in keys:
@@ -106,18 +123,30 @@ def _concat_parts(parts: List[Dict], pin: bool) -> Dict:
 
 class _BatchProducer:
     """Background thread turning a sample stream into a queue of host
-    batches (torch tensors, pinned when ``pin``)."""
+    batches (torch tensors, pinned when ``pin``).
 
-    def __init__(self, stream, batch_size: int, cfg: DataConfig, pin: bool):
+    ``slice_range=(a, b)``: the stream is raw (``tar.materialize_samples``);
+    the producer still takes ``batch_size`` samples a batch, as every rank
+    does, but decodes and emits positions [a, b) only; ``{}`` when a == b
+    (this rank's slice lies in another part of the batch)."""
+
+    def __init__(self, stream, batch_size: int, cfg: DataConfig, pin: bool,
+                 slice_range: Optional[Tuple[int, int]] = None):
         self.stream = stream
         self.batch_size = batch_size
         self.cfg = cfg
         self.pin = pin
+        self.slice_range = slice_range
         self.q: "queue.Queue" = queue.Queue(maxsize=cfg.prefetch + 1)
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
 
     def _make_batch(self, buf: List[Dict]) -> Dict:
+        if self.slice_range is not None:
+            a, b = self.slice_range
+            buf = materialize_samples(buf[a:b], n_threads=self.cfg.num_workers)
+            if not buf:
+                return {}
         batch = _stack_samples(buf, in_channels=self.cfg.in_channels, classes=self.cfg.classes)
         for k in ("image", "mask", "lu"):
             if k in batch:
@@ -176,16 +205,11 @@ class _BatchProducer:
 
 
 class DeadtreesDataModule:
-    """Shards → ready-to-train device batches, in one process."""
+    """Shards → ready-to-train device batches: a rank's local slices."""
 
     def __init__(self, config: DataConfig):
         from deadtrees_tpu_torch.infer.engine import resolve_device
 
-        if (config.process_count or 1) > 1:
-            raise NotImplementedError(
-                f"process_count={config.process_count}: several processes are not ported "
-                f"yet {_QUEUED}"
-            )
         self.cfg = config
         self.device = resolve_device(config.device)
         if isinstance(config.data_dir, (list, tuple)):
@@ -233,6 +257,11 @@ class DeadtreesDataModule:
         if not train:
             raise ValueError(f"no train shards matching {cfg.pattern!r}")
         self.train_shards, self.valid_shards, self.test_shards = train, valid, test
+        pi, pc = self.process_index, self.process_count
+        self.train_shards_local = list(train[pi::pc])
+        if not self.train_shards_local:
+            raise ValueError(f"process {pi} of {pc} got no train shard ({len(train)} in all): "
+                             "a data-parallel run needs one a process at least")
 
         probe = train[0]
         if cfg.cache_dir is not None:  # prime the cache: epoch 1 reuses the probe's copy
@@ -255,13 +284,40 @@ class DeadtreesDataModule:
         self._setup_done = True
 
     @property
+    def process_index(self) -> int:
+        if self.cfg.process_index is not None:
+            return int(self.cfg.process_index)
+        return _group()[0]
+
+    @property
+    def process_count(self) -> int:
+        if self.cfg.process_count is not None:
+            return int(self.cfg.process_count)
+        return _group()[1]
+
+    @property
+    def local_batch_size(self) -> int:
+        """This rank's share of a batch; raises unless the process count
+        divides the batch size."""
+        pc = self.process_count
+        if self.cfg.batch_size % pc:
+            raise ValueError(f"batch_size {self.cfg.batch_size} not divisible by "
+                             f"process_count {pc}")
+        return self.cfg.batch_size // pc
+
+    @property
     def main_batch_size(self) -> int:
         """The main dataset's share of a batch: the batch size less the extras'."""
         return self.cfg.batch_size - sum(self.cfg.batch_size_extra or [])
 
     @property
     def steps_per_epoch(self) -> int:
-        return len(self.train_shards) * self.shard_size // self.cfg.batch_size
+        """Steps every rank can take: the smallest rank's shards bound it."""
+        pc = self.process_count
+        if pc == 1:
+            return len(self.train_shards) * self.shard_size // self.cfg.batch_size
+        fewest = min(len(self.train_shards[p::pc]) for p in range(pc))
+        return fewest * self.shard_size // self.local_batch_size
 
     def _finish_batch(
         self, generator: Optional[torch.Generator], host_batch: Dict, *, train: bool
@@ -278,28 +334,58 @@ class DeadtreesDataModule:
         out["files"] = host_batch["files"]
         return out
 
+    def _part_sizes(self, n_extra: int, divisor: int) -> List[int]:
+        """The sizes of a batch's parts [main, *extras], each over
+        ``divisor`` (raises unless it divides each)."""
+        cfg = self.cfg
+        sizes = [self.main_batch_size if n_extra else cfg.batch_size]
+        sizes += list(cfg.batch_size_extra or [])[:n_extra]
+        for n in sizes:
+            if n % divisor:
+                raise ValueError(f"batch component {n} not divisible by process_count "
+                                 f"{divisor}")
+        return [n // divisor for n in sizes]
+
+    def _local_ranges(self, sizes: List[int]) -> List[Tuple[int, int]]:
+        """This rank's [a, b) in each part of the global batch: its slice
+        ``[pi·n, (pi+1)·n)`` of the concatenated parts, ``n`` the local
+        batch size."""
+        n = self.local_batch_size
+        lo, hi = self.process_index * n, (self.process_index + 1) * n
+        ranges, off = [], 0
+        for size in sizes:
+            a = min(max(lo - off, 0), size)
+            b = min(max(hi - off, 0), size)
+            ranges.append((a, max(a, b)))
+            off += size
+        return ranges
+
     def _stream(
         self, shards: List[str], extra_shards: List[List[str]], *, shuffle: int, train: bool,
         loop: bool, generator: Optional[torch.Generator], stream_seed: int,
+        local_slice: bool = False,
     ) -> Iterator[Dict]:
         """Finished batches of ``shards``, each followed by its extra parts
-        from ``extra_shards`` (none: the main part is the whole batch)."""
+        from ``extra_shards`` (none: the main part is the whole batch).
+        Training (several processes): each part is its size over the
+        process count. ``local_slice``: raw streams of the global batches,
+        of which this rank decodes its slice."""
         cfg = self.cfg
         pin = self.device.type == "cuda"
+        sizes = self._part_sizes(len(extra_shards), self.process_count if train else 1)
+        ranges = self._local_ranges(sizes) if local_slice else [None] * len(sizes)
 
-        def producer(part_shards, batch_size, seed, part_loop, part_pin):
+        def producer(k, part_shards, seed, part_loop, part_pin):
             stream = make_sample_stream(
                 part_shards, shuffle=shuffle, seed=seed, loop=part_loop,
-                prefer_native=cfg.use_native, n_threads=cfg.num_workers,
+                prefer_native=cfg.use_native, n_threads=cfg.num_workers, raw=local_slice,
                 cache_dir=cfg.cache_dir,
             )
-            return _BatchProducer(stream, batch_size, cfg, pin=part_pin)
+            return _BatchProducer(stream, sizes[k], cfg, pin=part_pin, slice_range=ranges[k])
 
-        sizes = cfg.batch_size_extra or []
-        main = producer(shards, self.main_batch_size if extra_shards else cfg.batch_size,
-                        stream_seed, loop, pin and not extra_shards)
-        extras = [producer(s, bs, stream_seed + 1 + i, True, False)
-                  for i, (bs, s) in enumerate(zip(sizes, extra_shards))]
+        main = producer(0, shards, stream_seed, loop, pin and not extra_shards)
+        extras = [producer(1 + i, s, stream_seed + 1 + i, True, False)
+                  for i, s in enumerate(extra_shards)]
         extra_iters = [iter(e) for e in extras]
         try:
             for host_batch in main:
@@ -321,9 +407,13 @@ class DeadtreesDataModule:
             raise RuntimeError("call setup() first")
         if generator is None:
             generator = torch.Generator().manual_seed(self.cfg.seed)
+        pi, pc = self.process_index, self.process_count
+        if pc > 1:  # the rank folded in, as JAX folds process_index into its key
+            base = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+            generator = torch.Generator().manual_seed(base * pc + pi)
         stream_seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
         return self._stream(
-            self.train_shards, self.extra_train_shards,
+            self.train_shards_local, [s[pi::pc] or s for s in self.extra_train_shards],
             shuffle=max(self.cfg.shuffle_buffer, self.shard_size), train=True, loop=loop,
             generator=generator, stream_seed=stream_seed,
         )
@@ -333,7 +423,7 @@ class DeadtreesDataModule:
             raise RuntimeError("call setup() first")
         return self._stream(
             self.valid_shards, self.extra_valid_shards, shuffle=0, train=False, loop=False,
-            generator=None, stream_seed=self.cfg.seed,
+            generator=None, stream_seed=self.cfg.seed, local_slice=self.process_count > 1,
         )
 
     def test_batches(self) -> Iterator[Dict]:
@@ -343,5 +433,14 @@ class DeadtreesDataModule:
             return iter(())
         return self._stream(
             self.test_shards, [], shuffle=0, train=False, loop=False,
-            generator=None, stream_seed=self.cfg.seed,
+            generator=None, stream_seed=self.cfg.seed, local_slice=self.process_count > 1,
         )
+
+
+def _group() -> Tuple[int, int]:
+    """(rank, world size) of the process group; (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1

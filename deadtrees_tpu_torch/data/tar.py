@@ -15,11 +15,13 @@ plain tar shards (``{key}.rgbn.tif``, ``{key}.mask.tif``, ``{key}.lu.tif``,
 - :class:`ShardSampleStream` iterates many shards with a buffered shuffle
   and reshuffles the shard order each pass; :class:`NativeShardSampleStream`
   decodes each local shard whole through the C++ reader (``data/native.py``)
-  and yields the same samples in the same order.
-
-The JAX package's deferred decode for the eval slicing of several
-processes (``raw=``, ``materialize_samples``) is not ported (ROADMAP.md,
-queue 1, item 8).
+  and yields the same samples in the same order;
+- ``raw=True`` defers the decode: the streams yield markers
+  (``{"__raw__": bytes}`` from the Python reader, ``{"__native__":
+  (shard, extents, (h, w))}`` from the native one, with the sample's
+  stats) that :func:`materialize_samples` decodes later. Every rank of a
+  data-parallel run streams the same raw eval batches (the same order and
+  end) and decodes only its slice.
 """
 
 from __future__ import annotations
@@ -233,6 +235,7 @@ class ShardSampleStream:
         shuffle: int = 0,
         seed: int = 0,
         loop: bool = False,
+        raw: bool = False,
         cache_dir: Optional[str] = None,
     ):
         self.shards = [str(s) for s in shards]
@@ -240,6 +243,7 @@ class ShardSampleStream:
             raise ValueError("a looping sample stream needs at least one shard")
         self.shuffle = shuffle
         self.loop = loop
+        self.raw = raw
         self.cache_dir = cache_dir
         self._rng = random.Random(seed)
 
@@ -249,7 +253,7 @@ class ShardSampleStream:
 
     def _iter_shard(self, shard: str) -> Iterator[Dict]:
         for raw in iter_tar_samples(shard):
-            yield decode_sample(raw)
+            yield {"__raw__": raw} if self.raw else decode_sample(raw)
 
     def __iter__(self) -> Iterator[Dict]:
         while True:
@@ -288,13 +292,18 @@ class NativeShardSampleStream(ShardSampleStream):
     for the tar index: it goes through the Python reader. A local shard
     that the C++ decoder refuses (planar TIFFs, a strip table that does
     not cover the image, members of other dims) is read through PIL, with
-    a warning and an entry in :data:`NATIVE_FALLBACKS`."""
+    a warning and an entry in :data:`NATIVE_FALLBACKS`. With ``raw=True``
+    a local shard's samples are ``__native__`` markers: its tar index and
+    the dims of its first image, decoded by :func:`materialize_samples`."""
 
     def __init__(self, *args, n_threads: int = 4, **kwargs):
         super().__init__(*args, **kwargs)
         self.n_threads = n_threads
 
-    def _decode_shard(self, shard: str) -> List[Dict]:
+    def _markers(self, shard: str) -> List[Dict]:
+        """One ``__native__`` marker a sample of a local shard, with its
+        stats (a few bytes, read now, so that materializing is decode
+        work only)."""
         from deadtrees_tpu_torch.data import native
 
         samples = native.index_shard_samples(shard)
@@ -302,30 +311,17 @@ class NativeShardSampleStream(ShardSampleStream):
         if not keys:
             return []
         first = samples[keys[0]]["rgbn.tif"]
-        with open(shard, "rb") as f:
-            f.seek(first[0])
-            h, w = native.tiff_decode(f.read(first[1])).shape[:2]
-
-        def batch(suffix, c):
-            if suffix not in samples[keys[0]]:
-                return None
-            extents = [samples[k][suffix] for k in keys]
-            return native.decode_batch(shard, extents, (h, w, c), n_threads=self.n_threads)
-
-        rgbn, masks, lus = batch("rgbn.tif", 4), batch("mask.tif", 1), batch("lu.tif", 1)
         out = []
         with open(shard, "rb") as f:
-            for i, k in enumerate(keys):
-                sample: Dict = {"image": rgbn[i]}
+            f.seek(first[0])
+            dims = native.tiff_decode(f.read(first[1])).shape[:2]
+            for k in keys:
+                marker: Dict = {"__native__": (shard, samples[k], dims)}
                 if "txt" in samples[k]:
                     off, size = samples[k]["txt"]
                     f.seek(off)
-                    sample["stats"] = {"file": k, "frac": float(f.read(size))}
-                if masks is not None:
-                    sample["mask"] = masks[i, ..., 0]
-                if lus is not None:
-                    sample["lu"] = lus[i, ..., 0]
-                out.append(sample)
+                    marker["stats"] = {"file": k, "frac": float(f.read(size))}
+                out.append(marker)
         return out
 
     def _iter_shard(self, shard: str) -> Iterator[Dict]:
@@ -333,27 +329,115 @@ class NativeShardSampleStream(ShardSampleStream):
             yield from super()._iter_shard(shard)
             return
         try:
-            decoded = self._decode_shard(shard)
+            markers = self._markers(shard)
+            samples = markers if self.raw else _decode_markers(shard, markers, self.n_threads)
         except (ValueError, KeyError, OSError) as e:
-            log.warning(f"native decode of {shard} failed ({e!r}); reading it through PIL")
-            NATIVE_FALLBACKS.append(shard)
+            _fall_back(shard, e)
             yield from super()._iter_shard(shard)
             return
-        yield from decoded
+        yield from samples
+
+
+def _fall_back(shard: str, error: BaseException) -> None:
+    log.warning(f"native decode of {shard} failed ({error!r}); reading it through PIL")
+    NATIVE_FALLBACKS.append(shard)
+
+
+def _decode_markers(shard: str, markers: List[Dict], n_threads: int) -> List[Dict]:
+    """Decode ``__native__`` markers of one shard through the C++ reader:
+    images, masks and lu layers as three batches; stats carried over."""
+    from deadtrees_tpu_torch.data import native
+
+    if not markers:
+        return []
+    h, w = markers[0]["__native__"][2]
+    entries = [m["__native__"][1] for m in markers]
+
+    def batch(suffix, c):
+        if suffix not in entries[0]:
+            return None
+        return native.decode_batch(shard, [e[suffix] for e in entries], (h, w, c),
+                                   n_threads=n_threads)
+
+    rgbn, masks, lus = batch("rgbn.tif", 4), batch("mask.tif", 1), batch("lu.tif", 1)
+    out = []
+    for i, m in enumerate(markers):
+        sample: Dict = {"image": rgbn[i]}
+        if "stats" in m:
+            sample["stats"] = m["stats"]
+        if masks is not None:
+            sample["mask"] = masks[i, ..., 0]
+        if lus is not None:
+            sample["lu"] = lus[i, ..., 0]
+        out.append(sample)
+    return out
+
+
+def _decode_markers_pil(shard: str, markers: List[Dict]) -> List[Dict]:
+    """The samples of :func:`_decode_markers`, each member through PIL."""
+    out = []
+    with open(shard, "rb") as f:
+
+        def read(extent):
+            f.seek(extent[0])
+            return f.read(extent[1])
+
+        for m in markers:
+            entry = m["__native__"][1]
+            sample: Dict = {"image": image_decoder(read(entry["rgbn.tif"]))}
+            if "stats" in m:
+                sample["stats"] = m["stats"]
+            if "mask.tif" in entry:
+                sample["mask"] = mask_decoder(read(entry["mask.tif"]))
+            if "lu.tif" in entry:
+                sample["lu"] = mask_decoder(read(entry["lu.tif"]))
+            out.append(sample)
+    return out
+
+
+def materialize_samples(samples: List[Dict], *, n_threads: int = 4) -> List[Dict]:
+    """Decode the markers of a ``raw=True`` stream, in their order:
+    ``__raw__`` ones with :func:`decode_sample`, ``__native__`` ones grouped
+    by shard through the C++ reader (one batch a member suffix a shard);
+    decoded samples pass unchanged. A shard whose members the C++ decoder
+    refuses is read through PIL, with a warning and an entry in
+    :data:`NATIVE_FALLBACKS`."""
+    out: List[Optional[Dict]] = [None] * len(samples)
+    by_shard: Dict[str, List[int]] = {}
+    for i, s in enumerate(samples):
+        if "__raw__" in s:
+            out[i] = decode_sample(s["__raw__"])
+        elif "__native__" in s:
+            by_shard.setdefault(s["__native__"][0], []).append(i)
+        else:
+            out[i] = s
+    for shard, idxs in by_shard.items():
+        markers = [samples[i] for i in idxs]
+        try:
+            decoded = _decode_markers(shard, markers, n_threads)
+        except (ValueError, KeyError, OSError) as e:
+            _fall_back(shard, e)
+            decoded = _decode_markers_pil(shard, markers)
+        for i, d in zip(idxs, decoded):
+            out[i] = d
+    return out  # type: ignore[return-value]
 
 
 def make_sample_stream(
     shards, *, shuffle: int = 0, seed: int = 0, loop: bool = False,
-    prefer_native: bool = True, n_threads: int = 4, cache_dir: Optional[str] = None,
+    prefer_native: bool = True, n_threads: int = 4, raw: bool = False,
+    cache_dir: Optional[str] = None,
 ) -> ShardSampleStream:
     """The native stream when ``prefer_native`` (its library is built on
-    first use, and a failed build raises), else the PIL stream."""
+    first use, and a failed build raises), else the PIL stream; ``raw``
+    defers the decode (:func:`materialize_samples`)."""
     if prefer_native:
         from deadtrees_tpu_torch.data import native
 
         native.load()
         return NativeShardSampleStream(
-            shards, shuffle=shuffle, seed=seed, loop=loop, n_threads=n_threads,
+            shards, shuffle=shuffle, seed=seed, loop=loop, n_threads=n_threads, raw=raw,
             cache_dir=cache_dir,
         )
-    return ShardSampleStream(shards, shuffle=shuffle, seed=seed, loop=loop, cache_dir=cache_dir)
+    return ShardSampleStream(shards, shuffle=shuffle, seed=seed, loop=loop, raw=raw,
+                             cache_dir=cache_dir)

@@ -1,12 +1,16 @@
 """Mosaic predicted tiles into one georeferenced raster.
 
-Counterpart of ``deadtrees_tpu.geo.mosaic`` (PIL backend): the first-party
-analogue of the ``gdal_merge.py`` step that glues the predicted tiles of a
-year into one GeoTIFF. Header-only scans place every tile on the union
-grid; the tiles are assembled into a disk-backed ``np.memmap`` and saved
-once, with the GeoTIFF tags synthesized (pixel scale from the tiles, tie
-point at the union's top-left). PIL cannot write BigTIFF, so outputs over
-4 GB need the rasterio backend, which is not ported (ROADMAP.md).
+Counterpart of ``deadtrees_tpu.geo.mosaic``: the first-party analogue of
+the ``gdal_merge.py`` step that glues the predicted tiles of a year into
+one GeoTIFF. Header-only scans place every tile on the union grid. The
+backends mirror ``infer/geotiff.py``:
+
+1. rasterio present (``HAVE_RASTERIO``): windowed writes into one open
+   dataset (BigTIFF when needed), without the mosaic in memory;
+2. otherwise PIL: the tiles are assembled into a disk-backed
+   ``np.memmap`` and saved once, with the GeoTIFF tags synthesized (pixel
+   scale from the tiles, tie point at the union's top-left). PIL cannot
+   write BigTIFF, so outputs over 4 GB need rasterio.
 
 Overlap semantics match gdal_merge: later tiles win.
 """
@@ -20,7 +24,7 @@ from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 
-from deadtrees_tpu_torch.infer.geotiff import GEO_TAGS
+from deadtrees_tpu_torch.infer.geotiff import GEO_TAGS, HAVE_RASTERIO
 
 log = logging.getLogger(__name__)
 
@@ -38,7 +42,8 @@ class PixelGrid:
 
 class TileMeta:
     """Placement facts for one tile, read from the header only (no pixel
-    decode: PIL is lazy until ``np.asarray``)."""
+    decode: PIL is lazy until ``np.asarray``; rasterio ``open`` reads the
+    IFD only)."""
 
     def __init__(
         self,
@@ -70,6 +75,19 @@ class TileMeta:
 
 def _meta_from_header(path: Union[str, Path]) -> TileMeta:
     path = Path(path)
+    if HAVE_RASTERIO:
+        import rasterio
+
+        with rasterio.open(str(path)) as src:
+            t = src.transform
+            if t.b or t.d:
+                raise ValueError(f"{path}: rotated rasters are unsupported")
+            grid = PixelGrid(x0=t.c, y0=t.f, sx=t.a, sy=-t.e)
+            return TileMeta(
+                path, src.height, src.width, src.count, grid,
+                np.dtype(src.dtypes[0]),
+            )
+
     from PIL import Image
 
     _PIL_MODE_DTYPES = {
@@ -181,8 +199,12 @@ def merge_tiles(
         "mosaic %s: %d tiles -> %dx%d px", out_path, len(metas), height, width
     )
 
-    _merge_pil(metas, out_path, grid, height, width, bands, dtype,
-               compress, nodata)
+    if HAVE_RASTERIO:
+        _merge_rasterio(metas, out_path, grid, height, width, bands, dtype,
+                        compress, nodata)
+    else:
+        _merge_pil(metas, out_path, grid, height, width, bands, dtype,
+                   compress, nodata)
     return {
         "tiles": len(metas),
         "height": height,
@@ -190,6 +212,35 @@ def merge_tiles(
         "bounds": (grid.x0, grid.y0 - grid.sy * height,
                    grid.x0 + grid.sx * width, grid.y0),
     }
+
+
+def _merge_rasterio(metas, out_path, grid, height, width, bands, dtype,
+                    compress, nodata) -> None:
+    import rasterio
+    from rasterio.transform import Affine
+    from rasterio.windows import Window
+
+    crs = None
+    with rasterio.open(str(metas[0].path)) as src:
+        crs = src.crs
+    transform = Affine(grid.sx, 0.0, grid.x0, 0.0, -grid.sy, grid.y0)
+    with rasterio.open(
+        str(out_path), "w", driver="GTiff",
+        height=height, width=width, count=bands, dtype=dtype,
+        crs=crs, transform=transform, nodata=nodata,
+        compress=compress.lower(), tiled=True,
+        bigtiff="IF_SAFER",
+    ) as dst:
+        for m in metas:
+            row, col = _placement(m, grid)
+            with rasterio.open(str(m.path)) as src:
+                if crs is not None and src.crs is not None and src.crs != crs:
+                    raise ValueError(
+                        f"{m.path}: CRS {src.crs} differs from first tile "
+                        f"({crs}) — reproject before mosaicking"
+                    )
+                data = src.read()
+            dst.write(data, window=Window(col, row, m.width, m.height))
 
 
 def _merge_pil(metas, out_path, grid, height, width, bands, dtype,
@@ -203,7 +254,7 @@ def _merge_pil(metas, out_path, grid, height, width, bands, dtype,
     if nbytes > (1 << 32) - (1 << 20):
         raise ValueError(
             f"mosaic would be {nbytes / 1e9:.1f} GB — beyond classic TIFF; "
-            "the BigTIFF windowed-write path (rasterio) is not ported"
+            "the BigTIFF windowed-write path needs rasterio"
         )
     with tempfile.NamedTemporaryFile(suffix=".mosaic.raw") as tmp:
         canvas = np.memmap(tmp.name, dtype=dtype, mode="w+", shape=shape)

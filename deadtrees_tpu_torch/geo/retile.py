@@ -1,10 +1,11 @@
 """Retile a large orthophoto into fixed-size tiles + locations.csv.
 
-Counterpart of ``deadtrees_tpu.geo.retile`` (PIL backend): the first-party
-analogue of the ``gdal_retile.py`` call that starts the pipeline. The
-scene is read once and written as tiles; downstream stages consume the
-tile files plus the ``locations.csv`` grid (``filename;x1;x2;y1;y2``).
-The windowed rasterio backend is not ported (ROADMAP.md).
+Counterpart of ``deadtrees_tpu.geo.retile``: the first-party analogue of
+the ``gdal_retile.py`` call that starts the pipeline. Downstream stages
+consume the tile files plus the ``locations.csv`` grid
+(``filename;x1;x2;y1;y2``). The backends mirror ``geo/mosaic.py``: with
+rasterio (``HAVE_RASTERIO``) windowed reads, without the scene in memory;
+with PIL one full read, then sliced writes.
 
 Ragged edge tiles keep their natural (smaller) size, like gdal_retile —
 the Tiler's pad/mask logic handles them at inference (infer/tiler.py).
@@ -17,7 +18,7 @@ import logging
 from pathlib import Path
 from typing import Dict, List, Union
 
-from deadtrees_tpu_torch.infer.geotiff import GEO_TAGS, write_geotiff
+from deadtrees_tpu_torch.infer.geotiff import GEO_TAGS, HAVE_RASTERIO, write_geotiff
 
 log = logging.getLogger(__name__)
 
@@ -45,7 +46,10 @@ def retile(
     src = Path(src)
     target_dir = Path(target_dir)
     target_dir.mkdir(parents=True, exist_ok=True)
-    records = _retile_pil(src, target_dir, tile_size, compress)
+    if HAVE_RASTERIO:
+        records = _retile_rasterio(src, target_dir, tile_size, compress)
+    else:
+        records = _retile_pil(src, target_dir, tile_size, compress)
 
     with open(target_dir / csv_name, "a" if append_csv else "w") as f:
         for r in records:
@@ -58,6 +62,32 @@ def retile(
 def _tile_spans(total: int, size: int) -> List[tuple]:
     """[(offset, length)] covering ``total``; the last span may be ragged."""
     return [(o, min(size, total - o)) for o in range(0, total, size)]
+
+
+def _retile_rasterio(src, target_dir, tile_size, compress) -> List[Dict]:
+    import rasterio
+    from rasterio.windows import Window
+
+    records = []
+    with rasterio.open(str(src)) as s:
+        t = s.transform
+        for i, (roff, rlen) in enumerate(_tile_spans(s.height, tile_size), 1):
+            for j, (coff, clen) in enumerate(_tile_spans(s.width, tile_size), 1):
+                name = f"{src.stem}_{i}_{j}.tif"
+                data = s.read(window=Window(coff, roff, clen, rlen))
+                tile_transform = t * t.translation(coff, roff)
+                with rasterio.open(
+                    str(target_dir / name), "w", driver="GTiff",
+                    height=rlen, width=clen, count=s.count,
+                    dtype=data.dtype, crs=s.crs, transform=tile_transform,
+                    nodata=s.nodata, compress=compress.lower(), tiled=True,
+                ) as dst:
+                    dst.write(data)
+                x0, y0 = tile_transform.c, tile_transform.f
+                bounds = (x0, y0 + tile_transform.e * rlen,
+                          x0 + tile_transform.a * clen, y0)
+                records.append({"filename": name, "bounds": bounds})
+    return records
 
 
 def _retile_pil(src, target_dir, tile_size, compress) -> List[Dict]:

@@ -21,6 +21,13 @@ CUDA-graph replay a program's output is overwritten by its next replay,
 so each chunk's classes are copied into ``preds`` before the next chunk
 runs; the map that leaves the predictor is a tensor of its own, which the
 side stream of ``predict_scenes`` copies to the host.
+
+With a ``mesh`` of several ranks (``parallel/mesh.py``) the subtile axis
+of each chunk is split over the ranks, as the JAX predictor's
+``P(None, "data")`` splits it: every rank runs its ``batch_size / ranks``
+subtiles of every chunk, and the class map comes back whole on every rank
+(JAX's ``P()``) through one all-reduce of the ranks' disjoint parts, each
+zero where another rank computed.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from deadtrees_tpu_torch.infer.blocks import make_blocks_nhwc, unmake_blocks_nhw
 from deadtrees_tpu_torch.infer.engine import normalizer, resolve_device
 from deadtrees_tpu_torch.infer.packing import pack2, unpack2
 from deadtrees_tpu_torch.infer.tiler import Tiler
+from deadtrees_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_, batch_sharding
 
 Device = Optional[Union[str, torch.device]]
 
@@ -54,6 +62,7 @@ def make_scene_predictor(
     batch_size: int = 128,
     mean: Sequence[float] = DATASET_CONFIG.mean,
     std: Sequence[float] = DATASET_CONFIG.std,
+    mesh: Optional[Mesh] = None,
     packed: bool = False,
     tta: int = 0,
     device: Device = None,
@@ -73,9 +82,14 @@ def make_scene_predictor(
     ``packed=True`` returns the 2-bit packed map (``packing.pack2``,
     (…, TH, TW // 4) uint8): 4× less device→host transfer.
 
-    The JAX predictor's ``mesh`` (the subtile batch sharded over chips) is
-    not ported: this runs on one device (ROADMAP.md)."""
+    ``mesh``: the subtile axis of each chunk split over its ranks (module
+    docstring); every rank calls ``predict`` with the same scenes and gets
+    the whole map. Raises when the world size does not divide
+    ``batch_size``."""
     device = resolve_device(device)
+    split = mesh is not None and mesh.distributed
+    # this rank's part of every chunk; the rest of ``preds`` stays 0
+    lo, hi = batch_sharding(mesh).local_range(batch_size) if split else (0, batch_size)
     if not _on_device(model, device):
         raise ValueError(
             f"the model lies on {next(model.parameters()).device}, not on {device}"
@@ -116,16 +130,18 @@ def make_scene_predictor(
         pad = (-(ns * n)) % batch_size
         if pad:
             blocks = torch.cat([blocks, blocks.new_zeros((pad,) + blocks.shape[1:])])
-        preds = torch.empty(blocks.shape[:3], dtype=torch.uint8, device=device)
+        preds = torch.zeros(blocks.shape[:3], dtype=torch.uint8, device=device)
         for i in range(0, blocks.shape[0], batch_size):
-            preds[i:i + batch_size] = program(blocks[i:i + batch_size], normalizers[c])
+            preds[i + lo:i + hi] = program(blocks[i + lo:i + hi], normalizers[c])
         del blocks
         preds = preds[: ns * n] * valid.reshape(-1, 1, 1).to(torch.uint8)
         out = torch.stack([
             unmake_blocks_nhwc(p, th, tw) for p in preds.reshape(ns, n, subtile, subtile)
         ])
         if packed:
-            out = pack2(out)
+            out = pack2(out)  # 4 pixels a byte, all of one subtile
+        if split:
+            all_reduce_sum_(out, mesh)
         return out[0] if squeeze else out
 
     predict.program = program

@@ -6,6 +6,16 @@ GeneralizedDice, GeneralizedDiceLoss (the "GDICE" config), DiceLoss,
 SurfaceLoss/BoundaryLoss, FocalLoss and the Generalized Wasserstein Dice
 Loss. Tensors are channel-first: ``probs`` is the softmax output
 (B, K, H, W) and ``target`` one-hot (B, K, H, W).
+
+Each term is the term of the GLOBAL batch inside
+``parallel.mesh.global_batch`` of several ranks, as the JAX step computes
+it over a sharded batch: a ratio of sums over the batch axis (CrossEntropy,
+GDICE, FOCAL) all-reduces its sums, a mean over samples or pixels (DICE,
+the per-sample GeneralizedDice, BOUNDARY, GWDICE) the mean of the equal
+local batches. Every term goes through the all-reduce with autograd, so
+the loss, and its gradient up to the factor of the world size that the
+step's mean over the ranks undoes, is the global batch's on every rank.
+Outside a global batch nothing changes.
 """
 
 from __future__ import annotations
@@ -15,6 +25,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from deadtrees_tpu_torch.parallel.mesh import batch_mean, batch_sum
 
 EPS = 1e-10
 _SPATIAL = (2, 3)
@@ -39,8 +51,8 @@ class CrossEntropy:
     def __call__(self, probs: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         log_p = torch.log(_take_idc(probs, self.idc).float() + 1e-10)
         mask = _take_idc(target, self.idc).float()
-        loss = -torch.sum(mask * log_p)
-        return loss / (torch.sum(mask) + 1e-10)
+        num, den = batch_sum(torch.stack([-torch.sum(mask * log_p), torch.sum(mask)]))
+        return num / (den + 1e-10)
 
 
 class GeneralizedDice:
@@ -59,7 +71,7 @@ class GeneralizedDice:
         divided = 1.0 - 2.0 * (torch.sum(intersection, dim=1) + EPS) / (
             torch.sum(union, dim=1) + EPS
         )
-        return torch.mean(divided)
+        return batch_mean(torch.mean(divided))
 
 
 class GeneralizedDiceLoss:
@@ -69,9 +81,13 @@ class GeneralizedDiceLoss:
     def __call__(self, probs: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         inp = probs.float()
         targ = target.float()
-        w = 1.0 / (torch.sum(targ, dim=_ALL_BUT_CLASS) ** 2 + 1e-9)  # (K,)
-        numerator = torch.sum(w * torch.sum(targ * inp, dim=_ALL_BUT_CLASS))
-        denominator = torch.sum(w * torch.sum(targ + inp, dim=_ALL_BUT_CLASS))
+        # (3, K): the class volumes, intersections and sums, over the batch
+        sums = batch_sum(torch.stack([torch.sum(targ, dim=_ALL_BUT_CLASS),
+                                      torch.sum(targ * inp, dim=_ALL_BUT_CLASS),
+                                      torch.sum(targ + inp, dim=_ALL_BUT_CLASS)]))
+        w = 1.0 / (sums[0] ** 2 + 1e-9)  # (K,)
+        numerator = torch.sum(w * sums[1])
+        denominator = torch.sum(w * sums[2])
         dice = 2.0 * (numerator + 1e-9) / (denominator + 1e-9)
         return 1.0 - dice
 
@@ -88,7 +104,7 @@ class DiceLoss:
         intersection = torch.sum(pc * tc, dim=_SPATIAL)  # (B, K)
         union = torch.sum(pc, dim=_SPATIAL) + torch.sum(tc, dim=_SPATIAL)
         divided = 1.0 - (2.0 * intersection + EPS) / (union + EPS)
-        return torch.mean(divided)
+        return batch_mean(torch.mean(divided))
 
 
 class SurfaceLoss:
@@ -101,7 +117,7 @@ class SurfaceLoss:
     def __call__(self, probs: torch.Tensor, dist_maps: torch.Tensor) -> torch.Tensor:
         pc = _take_idc(probs, self.idc).float()
         dc = _take_idc(dist_maps, self.idc).float()
-        return torch.mean(pc * dc)
+        return batch_mean(torch.mean(pc * dc))
 
 
 BoundaryLoss = SurfaceLoss
@@ -119,8 +135,8 @@ class FocalLoss:
         log_p = torch.log(masked_probs + EPS)
         mask = _take_idc(target, self.idc).float()
         w = (1.0 - masked_probs) ** self.gamma
-        loss = -torch.sum(w * mask * log_p)
-        return loss / (torch.sum(mask) + EPS)
+        num, den = batch_sum(torch.stack([-torch.sum(w * mask * log_p), torch.sum(mask)]))
+        return num / (den + EPS)
 
 
 class GeneralizedWassersteinDiceLoss:
@@ -166,7 +182,7 @@ class GeneralizedWassersteinDiceLoss:
         wass_dice = (2.0 * true_pos + epsilon) / (denom + epsilon)
         loss = 1.0 - wass_dice
         if self.reduction == "sum":
-            return torch.sum(loss)
+            return batch_sum(torch.sum(loss))
         if self.reduction == "none":
             return loss
-        return torch.mean(loss)
+        return batch_mean(torch.mean(loss))

@@ -13,6 +13,10 @@ Counterpart of ``deadtrees_tpu.losses.metrics``:
   with ``length``), so they trace into a compiled program, where
   ``torch.bincount``'s data-dependent length would break the graph.
 
+Inside ``parallel.mesh.global_batch`` of several ranks :func:`fscore`'s
+tp / fp / fn are the global batch's sums (all-reduced), as JAX's are over
+a sharded batch.
+
 Probabilities and one-hot tensors are (B, K, H, W).
 """
 
@@ -21,6 +25,8 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+
+from deadtrees_tpu_torch.parallel.mesh import batch_sum
 
 
 def _threshold(x: torch.Tensor, threshold: Optional[float]) -> torch.Tensor:
@@ -55,9 +61,9 @@ def fscore(
     k = probs.shape[1]
     pr = _take_channels(_threshold(probs.float(), threshold), k, ignore_channels)
     gt = _take_channels(target.float(), k, ignore_channels)
-    tp = torch.sum(gt * pr)
-    fp = torch.sum(pr) - tp
-    fn = torch.sum(gt) - tp
+    tp, s_pr, s_gt = batch_sum(torch.stack([torch.sum(gt * pr), torch.sum(pr), torch.sum(gt)]))
+    fp = s_pr - tp
+    fn = s_gt - tp
     b2 = beta**2
     return ((1 + b2) * tp + eps) / ((1 + b2) * tp + b2 * fn + fp + eps)
 

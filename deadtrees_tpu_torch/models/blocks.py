@@ -14,14 +14,64 @@ Only the default (single-tensor) InvertedResidual path is ported: the JAX
 package's env-gated layout experiments compute the same numbers.
 
 Every BatchNorm of the port is :class:`BatchNorm2d`, which trains with
-flax's semantics (biased running variance).
+flax's semantics (biased running variance), over the global batch of a
+data-parallel step (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from deadtrees_tpu_torch.parallel.mesh import active_mesh
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the ranks' global batch: the per-channel
+    sums of x and x² and the count are all-reduced once in the forward,
+    the sums of dy and dy·x̂ once in the backward, as the normalization
+    couples every sample of the global batch. The sums accumulate in
+    float64 (torch's CPU BatchNorm does too): float32 sums put the deepest
+    layers' gradients of a small model 30 × further from a float64
+    reference than the one-process BatchNorm. Saves x in its own type."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        xf = x.float()
+        count = torch.full((1,), x.numel() // c, dtype=torch.float64, device=x.device)
+        stats = torch.cat([xf.sum((0, 2, 3), dtype=torch.float64),
+                           (xf * xf).sum((0, 2, 3), dtype=torch.float64), count])
+        dist.all_reduce(stats, group=group)
+        n = stats[-1]
+        mean64 = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean64 * mean64, min=0.0).float()
+        mean = mean64.float()
+        invstd = torch.rsqrt(var + eps)
+        scale = invstd * weight.float()
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + bias.float()[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        c = x.shape[1]
+        g = gy.float()
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        sums = torch.cat([g.sum((0, 2, 3), dtype=torch.float64),
+                          (g * xhat).sum((0, 2, 3), dtype=torch.float64)])
+        grad_bias, grad_weight = sums[:c].float(), sums[c:].float()
+        dist.all_reduce(sums, group=ctx.group)
+        mean_dy, mean_dy_xhat = (sums[:c] / ctx.n).float(), (sums[c:] / ctx.n).float()
+        gx = (g - mean_dy[:, None, None] - xhat * mean_dy_xhat[:, None, None]) * (
+            invstd * weight.float())[:, None, None]
+        return (gx.to(x.dtype), grad_weight.to(weight.dtype), grad_bias.to(weight.dtype),
+                None, None)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -32,11 +82,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     torch would take the unbiased one; ``momentum`` 0.1 is flax's 0.9.
     The statistics are taken in float32 whatever the input type, as flax
     takes them. Eval mode and the ``state_dict()`` keys are torch's own.
+
+    Inside ``parallel.mesh.global_batch`` of several ranks the statistics
+    are those of the global batch (:class:`_GlobalBatchNorm`), as XLA
+    computes them for the JAX step under a mesh; ``nn.SyncBatchNorm`` would
+    move ``running_var`` toward the unbiased variance. Otherwise nothing
+    changes, the numbers included.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        mesh = active_mesh()
+        if mesh is not None:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps,
+                                                  mesh.group)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean * m)
+                self.running_var.mul_(1.0 - m).add_(var * m)
+                self.num_batches_tracked.add_(1)
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             m = self.momentum

@@ -160,6 +160,12 @@ class Optimizer:
             if t is not None:
                 torch._dynamo.mark_static_address(t)
 
+    def state_tensors(self) -> List[torch.Tensor]:
+        """The state that the ranks of a data-parallel run hold equal (the
+        counts, the moments, the accumulator; ``parallel.mesh.replicate``)."""
+        return [t for t in (self.count, self.mini_step, self._mu, self._nu, self._acc)
+                if t is not None]
+
     def _views(self, flat: torch.Tensor) -> List[torch.Tensor]:
         """``flat`` cut into the parameters' shapes (views)."""
         return [v.view(p.shape) for v, p in zip(flat.split(self._sizes), self.params)]

@@ -38,6 +38,27 @@ syncs with the host between its upload and its update. The eval step and
 the predict step are one program each; the eval step counts its
 confusion matrices with a fixed length (``losses.metrics.bin_counts``).
 
+Data parallelism (``mesh`` of several ranks, ``parallel/mesh.py``): each
+rank steps on its local slice of the global batch, and the step is the
+JAX mesh step's, whose collectives XLA inserts:
+
+- the forward and the loss run inside ``global_batch(mesh)``: the
+  train-mode BatchNorms normalize with the global batch's statistics, the
+  loss terms and ``fscore`` are the global batch's (``losses/``), so the
+  loss parts and the metrics are the same numbers on every rank;
+- one all-reduce (mean) of the optimizer's flat ``grad`` buffer between
+  ``load_grads`` and the update: the counterpart of the JAX step's single
+  gradient psum; ``grad_norm`` is taken after it. Each accumulation
+  micro-step reduces its own;
+- the NaN/Inf guard is one decision for every rank: the ``finite`` flag is
+  all-reduced (minimum) before it guards the BatchNorm statistics and the
+  update;
+- the eval step's confusion matrices are the global batch's counts.
+
+Only ``all_reduce`` and ``broadcast`` are called. With several ranks the
+steps run eagerly (the collectives are not traced into a program); with
+one rank, or ``mesh=None``, nothing changes.
+
 The model computes in its own dtype (bf16 autocast for the flagship);
 tensors are channel-first: 'image' (B, C, H, W) float32, 'mask' (B, H, W)
 integer, 'distmap' (B, K, H, W) float32.
@@ -46,7 +67,7 @@ integer, 'distmap' (B, K, H, W) float32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -54,6 +75,13 @@ from torch import nn
 from deadtrees_tpu_torch.core.compile_opts import Program
 from deadtrees_tpu_torch.losses.functional import class2one_hot
 from deadtrees_tpu_torch.losses.metrics import bin_counts, fscore
+from deadtrees_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_mean_,
+    batch_all,
+    batch_sum,
+    global_batch,
+)
 from deadtrees_tpu_torch.train.loss import CompoundLoss
 from deadtrees_tpu_torch.train.optim import Optimizer, encoder_grad_mask, global_norm
 
@@ -71,6 +99,12 @@ class TrainState:
         """Swap in a fresh optimizer (the MultiStage lr-reduce stage)."""
         self.optimizer = optimizer
         return self
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Parameters, buffers and the optimizer's state: what
+        ``parallel.mesh.replicate`` makes rank 0's on every rank."""
+        return [*self.model.parameters(), *self.model.buffers(),
+                *self.optimizer.state_tensors()]
 
 
 def bn_buffers(model: nn.Module) -> List[torch.Tensor]:
@@ -106,6 +140,36 @@ def _device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+class _Eager:
+    """A step function that runs op by op where a :class:`Program` would
+    compile it: the data-parallel steps, whose collectives stay eager."""
+
+    by_default = False
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.compiles: list = []  # as a Program's: none here
+
+    def options(self, device=None):
+        return None
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+
+def step_program(fn, device: torch.device, mesh: Optional[Mesh]):
+    """``fn`` as a step program; with several ranks, ``fn`` run eagerly
+    inside ``global_batch(mesh)``."""
+    if mesh is None or not mesh.distributed:
+        return Program(fn, device, by_default=False)
+
+    def in_global_batch(*args, **kwargs):
+        with global_batch(mesh):
+            return fn(*args, **kwargs)
+
+    return _Eager(in_global_batch)
+
+
 def make_train_step(
     model: nn.Module,
     loss: CompoundLoss,
@@ -113,9 +177,11 @@ def make_train_step(
     num_classes: int,
     remat: bool = False,
     frozen_bn: bool = False,
+    mesh: Optional[Mesh] = None,
 ):
     """Returns ``train_step(state, batch, epoch, frozen=False) -> (state,
-    metrics)``; it updates ``state`` in place. Metrics are 0-d tensors on
+    metrics)``; it updates ``state`` in place. ``mesh``: the data-parallel
+    mesh, ``batch`` then being this rank's slice (module docstring). Metrics are 0-d tensors on
     the model's device. The step runs two programs (module docstring): the
     forward, whose ``frozen`` entries differ in the encoder's BatchNorm
     mode, and the update, with the optimizer as an argument, so that a new
@@ -143,24 +209,25 @@ def make_train_step(
         probs = torch.softmax(logits, dim=1)
         total, parts = loss(probs, y, logits=logits, distmap=distmap, epoch=epoch)
         with torch.no_grad():
-            # NaN/Inf guard: the forward's BatchNorm updates stand only when finite
-            finite = torch.isfinite(total)
+            # NaN/Inf guard, one decision for every rank: the forward's
+            # BatchNorm updates stand only when finite
+            finite = batch_all(torch.isfinite(total))
             for b, s in zip(moving, before):
                 b.copy_(torch.where(finite, b, s))
             metrics = {k: v.detach() for k, v in parts.items()}
             metrics["dice"] = fscore(probs.detach(), y, ignore_channels=[0])
             metrics["dice_with_bg"] = fscore(probs.detach(), y)
-        return total, metrics
+        return total, metrics, finite
 
     @torch.no_grad()
-    def update(optimizer, total):
+    def update(optimizer, finite):
         # the guard of the parameters and the optimizer state
         grad_norm = global_norm(optimizer.grad)
-        optimizer.step(finite=torch.isfinite(total))
+        optimizer.step(finite=finite)
         return grad_norm
 
-    forward_program = Program(forward_loss, device, by_default=False)
-    update_program = Program(update, device, by_default=False)
+    forward_program = step_program(forward_loss, device, mesh)
+    update_program = step_program(update, device, mesh)
 
     def train_step(
         state: TrainState, batch: Dict[str, torch.Tensor], epoch, frozen: bool = False
@@ -170,13 +237,14 @@ def make_train_step(
         else:
             model.train(True, encoder_train=not frozen)
         model.zero_grad(set_to_none=True)
-        total, metrics = forward_program(
+        total, metrics, finite = forward_program(
             batch["image"], batch["mask"], batch.get("distmap"), epochs(epoch))
         # eagerly, the checkpointed forward's recompute in backward moves the
         # running statistics a second time; a compiled program's does not
         restore = remat and forward_program.options() is None
         after_forward = [b.clone() for b in buffers] if restore else None
-        total.backward()
+        with global_batch(mesh):  # a checkpointed forward's recompute reduces too
+            total.backward()
         if restore:
             _restore(buffers, after_forward)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
@@ -184,7 +252,8 @@ def make_train_step(
             encoder_grad_mask(model, grads)
         state.optimizer.load_grads(grads)
         model.zero_grad(set_to_none=True)
-        metrics["grad_norm"] = update_program(state.optimizer, total.detach())
+        all_reduce_mean_(state.optimizer.grad, mesh)
+        metrics["grad_norm"] = update_program(state.optimizer, finite)
         state.step += 1
         return state, metrics
 
@@ -192,11 +261,13 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(model: nn.Module, loss: CompoundLoss, *, num_classes: int, tta: int = 0):
+def make_eval_step(model: nn.Module, loss: CompoundLoss, *, num_classes: int, tta: int = 0,
+                   mesh: Optional[Mesh] = None):
     """Returns ``eval_step(state, batch, epoch) -> metrics``: the loss
     parts, the Fscores and the unnormalized confusion-matrix counts
     (overall, and over the forest pixels when the batch has 'lu'), for the
-    eval loop to sum; one program.
+    eval loop to sum; one program. With a ``mesh`` of several ranks,
+    ``batch`` is this rank's slice and every number is the global batch's.
 
     ``tta`` (0, 4 or 8; any other value raises ``ValueError``): the
     probabilities are the mean over the dihedral views of
@@ -227,13 +298,14 @@ def make_eval_step(model: nn.Module, loss: CompoundLoss, *, num_classes: int, tt
         out = dict(parts)
         out["dice"] = fscore(probs, y, ignore_channels=[0])
         out["dice_with_bg"] = fscore(probs, y)
-        out["cm"] = bin_counts(idx, n2).reshape(num_classes, num_classes)
+        out["cm"] = batch_sum(bin_counts(idx, n2)).reshape(num_classes, num_classes)
         if lu is not None:
             idx_m = torch.where(lu.reshape(-1) == 1, idx, torch.full_like(idx, n2))
-            out["cm_masked"] = bin_counts(idx_m, n2 + 1)[:-1].reshape(num_classes, num_classes)
+            out["cm_masked"] = batch_sum(bin_counts(idx_m, n2 + 1))[:-1].reshape(
+                num_classes, num_classes)
         return out
 
-    program = Program(evaluate, device, by_default=False)
+    program = step_program(evaluate, device, mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], epoch):

@@ -1,6 +1,6 @@
 """Training runtime: the fit / validate / test loop.
 
-Counterpart of ``deadtrees_tpu.train.trainer`` for one device:
+Counterpart of ``deadtrees_tpu.train.trainer``:
 ``Trainer(config, work_dir, device=None)`` takes the JAX trainer's composed
 config dict (the same keys, ``config.compose`` of the repo's ``configs/``)
 and :func:`train` runs the recipe:
@@ -40,7 +40,23 @@ checkpoint save as the loop sees it, the resume load, the SWA BatchNorm
 recalibration (``swa_bn_batches`` batches) and each ``test()`` loop.
 
 It runs on CUDA unless ``device="cpu"`` is passed (the tests do).
-``devices > 1`` is not ported yet and raises ``NotImplementedError``.
+
+Data parallelism (``trainer.devices: N``, N ranks of the process group:
+``python -m torch.distributed.run --nproc-per-node N -m
+deadtrees_tpu_torch train trainer.devices=N ...``; ``parallel/mesh.py``):
+the trainer raises unless the world size is N (``null``: whatever it is).
+Each rank steps on its local slice of the global batch (the data module
+yields it) through the data-parallel steps (``steps.py``); the parameters
+and the optimizer state are rank 0's on every rank after the build, a
+resume, a new learning-rate stage and a checkpoint loaded by ``test``;
+an epoch takes at most the smallest rank's steps; validation and test
+metrics and the confusion matrices are the global batch's, the same on
+every rank; only rank 0 writes the metrics file, checkpoints, figures,
+``swa.ckpt`` and the sample counters, while every rank takes part in the
+collectives (SWA's BatchNorm recalibration included). The launcher
+delivers SIGTERM to every rank, and the ranks agree at each step boundary
+whether any of them was asked to stop (one all_reduce over the control
+group), so all stop at the same boundary.
 
 The steps are compiled programs (``train/steps.py``), built once per run;
 the fresh optimizer of the lr-reduce stage compiles the update program
@@ -75,7 +91,6 @@ from deadtrees_tpu_torch.core.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from deadtrees_tpu_torch.core.compile_opts import Program
 from deadtrees_tpu_torch.data.pipeline import DataConfig, DeadtreesDataModule
 from deadtrees_tpu_torch.infer.engine import resolve_device
 from deadtrees_tpu_torch.models import (
@@ -84,6 +99,7 @@ from deadtrees_tpu_torch.models import (
     state_dict_from_variables,
     tensor_variables_from_state_dict,
 )
+from deadtrees_tpu_torch.parallel.mesh import Mesh, any_rank, barrier, create_mesh, replicate
 from deadtrees_tpu_torch.train.loss import build_loss
 from deadtrees_tpu_torch.train.optim import (
     MultiStageConfig,
@@ -99,23 +115,27 @@ from deadtrees_tpu_torch.train.steps import (
     make_eval_step,
     make_predict_step,
     make_train_step,
+    step_program,
 )
 
 log = logging.getLogger(__name__)
 
-_QUEUED = "is not ported yet (ROADMAP.md, queue 1)"
 SWA_BN_BATCHES = 10
 
 
 class MetricsLogger:
     """CSV metrics sink (+ W&B when asked for and importable)."""
 
-    def __init__(self, save_dir: Path, use_wandb: bool = False, wandb_cfg=None):
+    def __init__(self, save_dir: Path, use_wandb: bool = False, wandb_cfg=None,
+                 enabled: bool = True):
+        # several ranks: rank 0 alone writes files and talks to W&B
+        self.enabled = enabled
         self.save_dir = Path(save_dir)
-        self.save_dir.mkdir(parents=True, exist_ok=True)
+        if enabled:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
         self.rows: List[Dict[str, Any]] = []
         self.wandb = None
-        if use_wandb:
+        if use_wandb and enabled:
             try:
                 import wandb
 
@@ -149,7 +169,7 @@ class MetricsLogger:
         self.wandb.log_artifact(art)
 
     def flush(self) -> None:
-        if not self.rows:
+        if not self.rows or not self.enabled:
             return
         keys = sorted({k for r in self.rows for k in r})
         with open(self.save_dir / "metrics.csv", "w", newline="") as f:
@@ -174,11 +194,17 @@ def _mean_metrics(batch_metrics: List[Dict[str, Any]], prefix: str) -> Dict[str,
     return out
 
 
-def _refuse_unported(cfg: Dict[str, Any]) -> None:
-    """Raise for a configured feature the port does not have yet."""
-    devices = cfg.get("trainer", {}).get("devices") or 1
-    if devices > 1:
-        raise NotImplementedError(f"trainer.devices > 1 {_QUEUED}")
+def _mesh(cfg: Dict[str, Any], device: torch.device) -> Mesh:
+    """This rank's mesh; raises unless the process group has
+    ``trainer.devices`` ranks (``null``: any number)."""
+    devices = cfg.get("trainer", {}).get("devices")
+    try:
+        return create_mesh(devices, device=device)
+    except ValueError as e:
+        raise ValueError(
+            f"trainer.devices={devices}: {e}. Launch one process a device: python -m "
+            f"torch.distributed.run --nproc-per-node {devices} -m deadtrees_tpu_torch train "
+            f"trainer.devices={devices} ...") from None
 
 
 class Trainer:
@@ -188,10 +214,11 @@ class Trainer:
         work_dir: Optional[Union[str, Path]] = None,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        _refuse_unported(config)
         self.cfg = config
         self.work_dir = Path(work_dir or ".")
         self.device = resolve_device(device)
+        self.mesh = _mesh(config, self.device)
+        self.is_main = self.mesh.rank == 0
         self.stats = {"train": Counter(), "val": Counter(), "test": Counter()}
         self.timings: Dict[str, List[float]] = {
             k: [] for k in ("epoch_s", "save_s", "resume_s", "swa_recal_s", "test_s")}
@@ -258,6 +285,7 @@ class Trainer:
                 classes=self.num_classes,
                 distmap=True,
                 seed=seed,
+                process_index=dmc.get("process_index"),
                 process_count=dmc.get("process_count"),
                 device=self.device,
             )
@@ -289,19 +317,24 @@ class Trainer:
             accumulate_grad_batches=self.grad_accum,
         )
         self.state = TrainState(self.model, make_optimizer(self.model.parameters(), self.opt_config))
+        replicate(self.state, self.mesh)
+        log.info(f"Mesh: {self.mesh.size} rank(s) on axis 'data'")
 
         self.loss = build_loss(mc.get("losses", ["GDICE", "FOCAL", "BOUNDARY"]), self.num_classes)
         self.train_step = make_train_step(
             self.model, self.loss, num_classes=self.num_classes,
             remat=bool(tc.get("remat", False)), frozen_bn=bool(tc.get("frozen_bn", False)),
+            mesh=self.mesh,
         )
-        self.eval_step = make_eval_step(self.model, self.loss, num_classes=self.num_classes)
+        self.eval_step = make_eval_step(self.model, self.loss, num_classes=self.num_classes,
+                                        mesh=self.mesh)
         self.predict_step = make_predict_step(self.model)
 
         def bn_pass(img: torch.Tensor) -> None:
             self.model(img)  # train mode: only the running statistics move
 
-        self._bn_pass = Program(bn_pass, self.device, by_default=False)
+        # several ranks: the global batch's statistics
+        self._bn_pass = step_program(bn_pass, self.device, self.mesh)
 
         cb = cfg.get("callbacks", {})
         ms = cb.get("multistage")
@@ -323,7 +356,8 @@ class Trainer:
         )
         # the snapshot is taken on the loop's thread; encode and write on a worker
         self._ckpt_writer = (
-            AsyncCheckpointWriter() if mck.get("async_write", True) is not False else None
+            AsyncCheckpointWriter()
+            if mck.get("async_write", True) is not False and self.is_main else None
         )
         es = cb.get("early_stopping", {})
         self.es_patience = int(es.get("patience", 200))
@@ -355,6 +389,7 @@ class Trainer:
             self.work_dir / lg.get("save_dir", "logs/metrics"),
             use_wandb=lg.get("kind") == "wandb",
             wandb_cfg=lg,
+            enabled=self.is_main,
         )
 
     def _stage_optimizer(self, epoch: int):
@@ -364,6 +399,44 @@ class Trainer:
         if ms and ms.lr_reduce_epoch is not None and epoch >= int(ms.lr_reduce_epoch):
             scale = 1.0 / float(ms.lr_reduce_fraction)
         return make_optimizer(self.model.parameters(), self.opt_config, lr_scale=scale)
+
+    def _stop(self) -> bool:
+        """Whether to stop at this step boundary: asked on any rank (every
+        rank asks at the same boundaries)."""
+        return any_rank(self._stop_requested, self.mesh)
+
+    @torch.no_grad()
+    def _check_replicas(self, epoch: int) -> None:
+        """Several ranks: raise unless every rank holds the same parameters
+        and BatchNorm buffers. A checksum of their bits (the sums of the
+        words and of their squares, int64) is all-reduced as its maximum
+        and its minimum: one all_reduce an epoch."""
+        if not self.mesh.distributed:
+            return
+        sums = torch.zeros(2, dtype=torch.int64, device=self.device)
+        for t in self.model.state_dict().values():
+            words = t.detach().reshape(-1)
+            words = words.view(torch.int32) if words.element_size() == 4 else words
+            words = words.to(torch.int64)
+            sums += torch.stack([words.sum(), (words * words).sum()])
+        both = torch.cat([sums, -sums])
+        torch.distributed.all_reduce(both, op=torch.distributed.ReduceOp.MAX,
+                                     group=self.mesh.group)
+        if not torch.equal(both[:2], -both[2:]):
+            raise RuntimeError(f"epoch {epoch}: the ranks' parameters drifted apart")
+        log.info(f"epoch {epoch}: the {self.mesh.size} ranks hold equal parameters and "
+                 f"BatchNorm buffers (checksum {both[:2].tolist()})")
+
+    def _epoch_step_cap(self, limit_train) -> Optional[int]:
+        """Steps this rank may take this epoch: with several processes at
+        most the smallest rank's (``steps_per_epoch``), so that no rank
+        waits in a collective for one whose stream ran dry; one process
+        runs to the end of its stream."""
+        cap = None if limit_train is None else int(limit_train)
+        if self.datamodule.process_count > 1:
+            safe = int(self.datamodule.steps_per_epoch)
+            cap = safe if cap is None else min(cap, safe)
+        return cap
 
     # -- loops --------------------------------------------------------------
     def _run_val_epoch(self, epoch: int, max_batches: Optional[int]) -> Dict[str, float]:
@@ -386,9 +459,9 @@ class Trainer:
             self.last_cm_masked = (
                 torch.stack(cms_masked).sum(0).cpu().numpy() if cms_masked else None
             )
-            if self.log_cm_figures:
+            if self.log_cm_figures and self.is_main:
                 self._save_cm_figures(self.last_cm, self.last_cm_masked, epoch)
-        if first_batch is not None and self.log_sample_figures:
+        if first_batch is not None and self.log_sample_figures and self.is_main:
             self._save_sample_figure(first_batch, epoch)
         return out
 
@@ -449,6 +522,7 @@ class Trainer:
         if "opt_state" in ckpt:
             optimizer_from_bytes(self.state.optimizer, self.model, ckpt["opt_state"])
         self.state.step = int(ckpt.get("step", 0))
+        replicate(self.state, self.mesh)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.timings["resume_s"].append(time.perf_counter() - t0)
@@ -510,14 +584,17 @@ class Trainer:
                     log.info(f"NEW STAGE (epoch {epoch}): fresh Adam at lr/"
                              f"{self.multistage.lr_reduce_fraction}")
                     self.state.replace_optimizer(self._stage_optimizer(epoch))
+                    replicate(self.state, self.mesh)
 
                 t0 = time.perf_counter()
                 n_steps = 0
                 train_metrics: List[Dict] = []
-                cap = None if limit_train is None else int(limit_train)
+                cap = self._epoch_step_cap(limit_train)
+                stop = False
                 with contextlib.closing(self.datamodule.train_batches(generator)) as batches:
                     for i, batch in enumerate(itertools.islice(batches, cap)):
-                        if self._stop_requested:
+                        stop = self._stop()
+                        if stop:
                             break
                         self.stats["train"].update(batch.pop("files", []))
                         batch.pop("lu", None)  # unused in training
@@ -530,7 +607,7 @@ class Trainer:
                     torch.cuda.synchronize(self.device)
                 dt = time.perf_counter() - t0
 
-                if self._stop_requested:
+                if stop or self._stop():
                     # the mid-epoch state as last.ckpt with epoch - 1: resume
                     # replays the interrupted epoch in full
                     log.warning(f"Stop requested: checkpointing mid-epoch {epoch} after "
@@ -540,8 +617,13 @@ class Trainer:
                     break
 
                 epoch_train = _mean_metrics(train_metrics, "train")
+                self._check_replicas(epoch)
+                if self.mesh.distributed:
+                    epoch_train["replicas_equal"] = 1.0
                 val = self._run_val_epoch(epoch, int(limit_val) if limit_val is not None else None)
                 last_val = val
+                if self.mesh.distributed:
+                    log.info(f"epoch {epoch}, rank {self.mesh.rank}: val {val}")
                 lr = cosine_annealing_schedule(self.opt_config, self.opt_config.learning_rate)(
                     self.state.step // self.grad_accum
                 )
@@ -587,8 +669,8 @@ class Trainer:
                 if stop_early:
                     log.info(f"Early stopping at epoch {epoch}")
                     break
-                if self._stop_requested:  # landed between epochs: the keeper
-                    preempted = True      # already saved last.ckpt
+                if self._stop():     # landed between epochs: the keeper
+                    preempted = True  # already saved last.ckpt
                     break
         finally:
             stack.close()
@@ -603,6 +685,8 @@ class Trainer:
                         self._ckpt_writer.wait()
                     except Exception:
                         log.exception("asynchronous checkpoint write failed")
+            if sys.exc_info()[0] is None:
+                barrier(self.mesh)  # rank 0's files on disk before any rank reads them
             self.teardown()
 
         result: Dict[str, Any] = dict(last_val)
@@ -626,6 +710,13 @@ class Trainer:
             result["swa_ckpt"] = str(swa_path)
             if self.upload_ckpts and not self.upload_best_only:
                 self.metrics.log_artifact(swa_path, "checkpoint-swa")
+        if self.mesh.distributed:
+            from deadtrees_tpu_torch.ops.launches import LAUNCHES
+
+            peak = (torch.cuda.max_memory_allocated(self.device) / 2**30
+                    if self.device.type == "cuda" else float("nan"))
+            log.info(f"rank {self.mesh.rank} of {self.mesh.size}: {self.state.step} steps, "
+                     f"kernel launches {dict(LAUNCHES)}, peak device memory {peak:.3f} GiB")
         self.metrics.finish()
         return result
 
@@ -677,8 +768,10 @@ class Trainer:
                 torch.cuda.synchronize(self.device)
             self.timings["swa_recal_s"].append(time.perf_counter() - t0)
             path = self.keeper.directory / "swa.ckpt"
-            save_checkpoint(path, **self._variables(), hparams=self.hparams,
-                            step=self.state.step, epoch=-1)
+            if self.is_main:
+                save_checkpoint(path, **self._variables(), hparams=self.hparams,
+                                step=self.state.step, epoch=-1)
+            barrier(self.mesh)
         finally:
             with torch.no_grad():
                 for t, v in zip(params + buffers, live):
@@ -706,6 +799,8 @@ class Trainer:
 
     def _ckpt_saver(self, epoch: int):
         def save(path):
+            if not self.is_main:
+                return
             if self._ckpt_writer is not None:
                 self._ckpt_writer.save(path, **self._ckpt_kwargs(epoch))
             else:
@@ -718,6 +813,8 @@ class Trainer:
         single = self._ckpt_saver(epoch)
 
         def save_many(paths):
+            if not self.is_main:
+                return
             if self._ckpt_writer is not None:
                 self._ckpt_writer.save_many(paths, **self._ckpt_kwargs(epoch))
             else:
@@ -730,6 +827,8 @@ class Trainer:
         """Old-best removal, ordered after its write when saves are async."""
 
         def delete(path):
+            if not self.is_main:
+                return
             if self._ckpt_writer is not None:
                 self._ckpt_writer.delete(path)
             else:
@@ -745,11 +844,14 @@ class Trainer:
         tta = int(self.cfg.get("tta", 0) or 0) if tta is None else int(tta)
         eval_step = self.eval_step
         if tta:
-            eval_step = make_eval_step(self.model, self.loss, num_classes=self.num_classes, tta=tta)
+            eval_step = make_eval_step(self.model, self.loss, num_classes=self.num_classes,
+                                       tta=tta, mesh=self.mesh)
         if ckpt_path:
             if self._ckpt_writer is not None:
                 self._ckpt_writer.wait()  # the file may still be in flight
+            barrier(self.mesh)  # ... on rank 0, which writes it
             self._load_variables(load_checkpoint(ckpt_path))
+            replicate(self.model, self.mesh)
         t0 = time.perf_counter()
         batch_metrics, cms, cms_masked = [], [], []
         with contextlib.closing(self.datamodule.test_batches()) as batches:
@@ -771,7 +873,9 @@ class Trainer:
         return out
 
     def teardown(self) -> None:
-        """Dump the per-file sample counters."""
+        """Dump the per-file sample counters (rank 0's)."""
+        if not self.is_main:
+            return
         for split in ("train", "val"):
             with open(self.work_dir / f"{split}_stats.csv", "w", newline="") as f:
                 w = csv.writer(f)

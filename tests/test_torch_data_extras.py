@@ -162,17 +162,30 @@ def test_extras_the_reference_would_hang_on_raise(data):
         dm.setup()
 
 
+# The JAX package's half only supplies the expected values. Its open_shard
+# closes a pipe: stream before the tar's end padding, and `cat` then dies of
+# SIGPIPE, which it raises as "exit 141" at random
+# (tests/test_torch_remote_shards.py holds that defect deterministically).
+# So it reads the same shards through a command whose exit status does not
+# depend on when its reader closes the pipe; the shard names are mapped back.
+# The port reads through the plain `pipe:cat`.
+EXIT_0 = "; exit 0"
+
+
 def test_remote_extras_mix_with_a_remote_main_set(data):
     spec = f"pipe:cat {data}/train-balanced-{{000000..000004}}.tar"
     extras = [f"pipe:cat {data}/train-negativesamples-{{000000..000002}}.tar"]
-    kw = dict(data_dir=spec, batch_size=5, pattern_extra=extras, batch_size_extra=[2],
-              distmap=False)
-    ours = _streamed(lambda: DeadtreesDataModule(DataConfig(device="cpu", **kw)))
-    theirs = _streamed(lambda: JaxDataModule(JaxDataConfig(use_native=False, **kw)))
+    kw = dict(batch_size=5, batch_size_extra=[2], distmap=False)
+    ours = _streamed(lambda: DeadtreesDataModule(DataConfig(
+        device="cpu", data_dir=spec, pattern_extra=extras, **kw)))
+    theirs = _streamed(lambda: JaxDataModule(JaxDataConfig(
+        use_native=False, data_dir=spec + EXIT_0, pattern_extra=[e + EXIT_0 for e in extras],
+        **kw)))
     failed = {name: half for name, half in (("port", ours), ("JAX package", theirs))
               if isinstance(half, str)}
     assert not failed, "\n".join(f"the {k}'s stream failed:\n{v}" for k, v in failed.items())
-    assert ours[0] == theirs[0]
+    assert ours[0] == [[s[:-len(EXIT_0)] for s in shards] for shards in theirs[0]]
+    assert ours[0][0][0].startswith("pipe:cat ") and ours[0][0][0].endswith(".tar")
     assert ours[1] == theirs[1] and len(ours[1]) == 2
 
 

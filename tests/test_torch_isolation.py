@@ -46,7 +46,8 @@ def test_importing_every_module_loads_no_jax():
                  "infer.sliding", "infer.export", "models.onnx_io", "models.segformer",
                  "infer.engine", "infer.scene", "geo", "geo.mosaic", "geo.retile",
                  "config", "config.loader", "utils.env", "utils.logging", "visualization",
-                 "visualization.helper", "train.entry", "__main__"):
+                 "visualization.helper", "train.entry", "__main__", "parallel",
+                 "parallel.mesh", "geo.raster", "geo.shapefile", "serve.ui"):
         assert f"deadtrees_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

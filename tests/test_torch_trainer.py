@@ -5,8 +5,8 @@ narrow decoder channels over two tiny shards (train and val, 32² RGBN
 TIFF tiles written with the port's ``ShardWriter``), with the MultiStage
 freeze in the first epoch. Its best checkpoint must load in
 ``deadtrees_tpu.core.load_model`` and give the port's float32 logits to
-1e-4. What the port does not have yet (several devices or processes)
-raises ``NotImplementedError``; the rest of the recipe is in
+1e-4. The data-parallel configuration errors are here; two ranks in
+tests/test_torch_parallel.py; the rest of the recipe in
 tests/test_torch_recipe.py.
 """
 
@@ -172,23 +172,42 @@ def test_two_class_collapse(dataset):
     assert int(batch["mask"].max()) == 1 and batch["distmap"].shape[1] == 2
 
 
-UNPORTED = {
-    "devices": lambda d, tmp: Trainer(_config(d, trainer={"devices": 4}), tmp, "cpu"),
-    "process_count": lambda d, tmp: DeadtreesDataModule(
-        DataConfig(data_dir=str(d / "train"), process_count=2, device="cpu")),
-    "process_count in the config": lambda d, tmp: Trainer(
-        _config(d, datamodule={"pattern": "train-combo-*.tar", "batch_size": 2,
-                               "process_count": 2}), tmp, "cpu").fit(),
+def _devices_without_ranks(d, tmp):
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc-per-node 4"):
+        Trainer(_config(d, trainer={"devices": 4}), tmp, "cpu")
+
+
+def _a_rank_without_train_shards(d, tmp):
+    dm = DeadtreesDataModule(DataConfig(data_dir=[str(d / s) for s in ("train", "val", "test")],
+                                        process_index=1, process_count=2, device="cpu"))
+    with pytest.raises(ValueError, match="process 1 of 2 got no train shard"):
+        dm.setup()
+
+
+def _process_count_in_the_config(d, tmp):
+    trainer = Trainer(_config(d, datamodule={"pattern": "train-combo-*.tar", "batch_size": 2,
+                                             "process_index": 0, "process_count": 2}),
+                      tmp, "cpu")
+    trainer._build()
+    dm = trainer.datamodule
+    assert (dm.process_index, dm.process_count, dm.local_batch_size) == (0, 2, 1)
+    (batch, *_) = list(dm.val_batches())
+    assert batch["image"].shape[0] == 1 and batch["files"] == ["val_0000"]
+
+
+DATA_PARALLEL = {
+    "devices": _devices_without_ranks,
+    "process_count": _a_rank_without_train_shards,
+    "process_count in the config": _process_count_in_the_config,
 }
 
 
-@pytest.mark.parametrize("feature", list(UNPORTED))
-def test_unported_features_raise(dataset, tmp_path, feature):
-    """What is still queued raises, naming itself: several devices, several
-    processes (ROADMAP.md, queue 1, item 8)."""
-    match = "devices" if feature == "devices" else r"process_count.*queue 1, item 8"
-    with pytest.raises(NotImplementedError, match=match):
-        UNPORTED[feature](dataset, tmp_path)
+@pytest.mark.parametrize("feature", list(DATA_PARALLEL))
+def test_data_parallel_configuration(dataset, tmp_path, feature):
+    """``trainer.devices: N`` needs N ranks and names the launch command;
+    a rank without train shards raises; the config's process override
+    makes one process a rank of a simulated group (local batches)."""
+    DATA_PARALLEL[feature](dataset, tmp_path)
 
 
 def test_trainer_runs_on_cuda_unless_asked(dataset, tmp_path, monkeypatch):
