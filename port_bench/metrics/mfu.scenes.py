@@ -1,0 +1,12 @@
+"""The model's forward FLOPs a subtile (counted on the reference), times
+the subtiles of the traced window, over the window and the card's bf16
+dense peak."""
+
+from port_bench.harness.peaks import BF16_FLOP_PER_S
+
+
+def read(record):
+    if record.trace is None:
+        return None
+    flops = record.facts["flops_per_tile"] * record.counters["tiles"]
+    return 100.0 * flops / record.trace.window_s / BF16_FLOP_PER_S
