@@ -50,6 +50,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from deadtrees_tpu_torch.core import trace
+
 ENV = "DEADTREES_COMPILE_OPTS"
 EAGER_ENV = "DEADTREES_DISABLE_COMPILE"
 # each program replays as one CUDA graph (one launch a call; PERF.md §5)
@@ -241,5 +243,10 @@ class Program:
         if added:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-            self.compiles.append((time.perf_counter() - t0, added))
+            seconds = time.perf_counter() - t0
+            self.compiles.append((seconds, added))
+            if trace.ENABLED:  # the same call on the timeline, inside the caller's span
+                end = time.time_ns()
+                trace.record("program.compile", end - int(seconds * 1e9), end,
+                             key=getattr(self.fn, "__qualname__", repr(self.fn)))
         return _own(out) if graphs else out

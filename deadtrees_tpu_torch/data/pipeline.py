@@ -26,6 +26,14 @@ Counterpart of ``deadtrees_tpu.data.pipeline``:
   ``cache_dir`` a remote shard is copied there on first touch (``setup``
   primes the cache with the probe shard) and later epochs read the copy.
 
+Spans (``core/trace.py``, off unless enabled; ``spans.json`` of a profiled
+fit), keyed by the batch's sequence number from its producer:
+``data.decode`` on the producer thread (materialize, stack, pin); on the
+thread that calls ``next()``, ``data.wait`` (blocked on the producer's
+queue; the counter ``data.queue_depth`` takes the batches ready just
+before), then ``data.upload``, ``data.augment`` (kernel 4's program) and
+``data.edt`` (the distance maps) in ``_finish_batch``.
+
 Several processes (the ranks of a data-parallel run, ``parallel/mesh.py``):
 ``process_index`` / ``process_count`` come from the config's override,
 else from the process group, else 0 and 1 (the override needs no group,
@@ -50,11 +58,13 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from deadtrees_tpu_torch.core import trace
 from deadtrees_tpu_torch.data.augment import augment_batch
 from deadtrees_tpu_torch.data.config import DATASET_CONFIG
 from deadtrees_tpu_torch.data.shards import discover_shards, split_shards
@@ -140,6 +150,7 @@ class _BatchProducer:
         self.q: "queue.Queue" = queue.Queue(maxsize=cfg.prefetch + 1)
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        self.seq = -1  # the sequence number of the batch last yielded
 
     def _make_batch(self, buf: List[Dict]) -> Dict:
         if self.slice_range is not None:
@@ -167,15 +178,19 @@ class _BatchProducer:
     def _run(self):
         buf: List[Dict] = []
         samples = iter(self.stream)
+        seq = 0
         try:
             for sample in samples:
                 if self._stop.is_set():
                     return
                 buf.append(sample)
                 if len(buf) == self.batch_size:
-                    if not self._put(self._make_batch(buf)):
+                    with trace.span("data.decode", key=seq):
+                        batch = self._make_batch(buf)
+                    if not self._put(batch):
                         return
                     buf = []
+                    seq += 1
             # partial batches are dropped (.batched(bs, partial=False))
         except BaseException as e:  # surfaced on the consumer thread
             self._put(e)
@@ -190,12 +205,22 @@ class _BatchProducer:
         self._stop.clear()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
+        seq = 0
         while True:
-            item = self.q.get()
+            if trace.ENABLED:
+                # batches ready, of at most prefetch + 1, and the wait for the next
+                trace.add("data.queue_depth", self.q.qsize())
+                t0 = time.time_ns()
+                item = self.q.get()
+                trace.record("data.wait", t0, time.time_ns(), key=seq)
+            else:
+                item = self.q.get()
             if item is None:
                 return
             if isinstance(item, BaseException):
                 raise item
+            self.seq = seq  # FIFO from one thread: the producer's number of this batch
+            seq += 1
             yield item
 
     def stop(self, timeout: float = 30.0) -> None:
@@ -320,7 +345,8 @@ class DeadtreesDataModule:
         return fewest * self.shard_size // self.local_batch_size
 
     def _finish_batch(
-        self, generator: Optional[torch.Generator], host_batch: Dict, *, train: bool
+        self, generator: Optional[torch.Generator], host_batch: Dict, *, train: bool,
+        key: Optional[int] = None,
     ) -> Dict:
         dev = self.device
 
@@ -328,9 +354,13 @@ class DeadtreesDataModule:
             t = host_batch.get(name)
             return None if t is None else t.to(dev, non_blocking=True)
 
-        out = augment_batch(generator, up("image"), up("mask"), up("lu"), train=train)
+        with trace.span("data.upload", key=key):
+            image, mask, lu = up("image"), up("mask"), up("lu")
+        with trace.span("data.augment", key=key):
+            out = augment_batch(generator, image, mask, lu, train=train)
         if self.cfg.distmap and "mask" in out:
-            out["distmap"] = batch_one_hot2dist(class2one_hot(out["mask"], self.cfg.classes))
+            with trace.span("data.edt", key=key):
+                out["distmap"] = batch_one_hot2dist(class2one_hot(out["mask"], self.cfg.classes))
         out["files"] = host_batch["files"]
         return out
 
@@ -392,7 +422,7 @@ class DeadtreesDataModule:
                 if extra_iters:
                     parts = [host_batch] + [next(it) for it in extra_iters]
                     host_batch = _concat_parts(parts, pin)
-                yield self._finish_batch(generator, host_batch, train=train)
+                yield self._finish_batch(generator, host_batch, train=train, key=main.seq)
         finally:
             for p in [main, *extras]:
                 p.stop()

@@ -12,7 +12,12 @@ The chunks run one after another, so peak activation memory is one
 chunk's; every chunk has one shape. Invalid (padding) subtiles come out
 zero. ``predict_scenes`` keeps at most two dispatches in flight, so one
 group's host work (Tiler pad copies, staging, 2-bit unpack) overlaps the
-next group's forward on the device.
+next group's forward on the device. Its spans (``core/trace.py``, off
+unless enabled), keyed by the dispatch's index in the call, on the
+caller's thread: ``scenes.stage`` (the Tilers, the validity stack, the
+pinned staging and the upload, with its wait for the slot's previous
+upload) and ``scenes.unpack`` (after the copy back: the 2-bit unpack and
+each scene's map).
 
 Each chunk (normalize, forward, argmax) is one compiled program at the
 chunk's shape (``core.compile_opts.Program``, the JAX predictor's jit);
@@ -37,6 +42,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from deadtrees_tpu_torch.core import trace
 from deadtrees_tpu_torch.core.compile_opts import Program
 from deadtrees_tpu_torch.data.config import DATASET_CONFIG
 from deadtrees_tpu_torch.infer.blocks import make_blocks_nhwc, unmake_blocks_nhwc
@@ -257,7 +263,7 @@ def predict_scenes(
         return scene, valid
 
     def drain(entry) -> None:
-        idx, tilers, out, done = entry
+        k, idx, tilers, out, done = entry
         if cuda:
             pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             with torch.cuda.stream(side):
@@ -267,28 +273,31 @@ def predict_scenes(
                 copied.record(side)
             copied.synchronize()
             out = pinned
-        packed = out.numpy()  # (g, TH, TW // 4)
-        for j, i in enumerate(idx):
-            t = tilers[j]
-            t._outdata = unpack2(packed[j], t._indata.shape[1])
-            results[i] = t.prediction
+        with trace.span("scenes.unpack", key=k):
+            packed = out.numpy()  # (g, TH, TW // 4)
+            for j, i in enumerate(idx):
+                t = tilers[j]
+                t._outdata = unpack2(packed[j], t._indata.shape[1])
+                results[i] = t.prediction
 
     for k, start in enumerate(range(0, len(scenes), g)):
-        idx = list(range(start, min(start + g, len(scenes))))
-        tilers = []
-        for i in idx:
-            t = Tiler(tile_shape=tile_shape, subtile_shape=(subtile, subtile))
-            t.load_array(scenes[i])
-            tilers.append(t)
-        vstack = np.zeros((g,) + tilers[0].subtiles_to_use.shape, bool)
-        for j, t in enumerate(tilers):
-            vstack[j] = t.subtiles_to_use
-        out = fn(*upload(k, tilers, vstack))
+        with trace.span("scenes.stage", key=k):
+            idx = list(range(start, min(start + g, len(scenes))))
+            tilers = []
+            for i in idx:
+                t = Tiler(tile_shape=tile_shape, subtile_shape=(subtile, subtile))
+                t.load_array(scenes[i])
+                tilers.append(t)
+            vstack = np.zeros((g,) + tilers[0].subtiles_to_use.shape, bool)
+            for j, t in enumerate(tilers):
+                vstack[j] = t.subtiles_to_use
+            staged = upload(k, tilers, vstack)
+        out = fn(*staged)
         done = None
         if cuda:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(device))
-        pending.append((idx, tilers, out, done))
+        pending.append((k, idx, tilers, out, done))
         if len(pending) > 1:  # two in flight, the one just launched included
             drain(pending.pop(0))
 

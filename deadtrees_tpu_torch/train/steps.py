@@ -34,7 +34,9 @@ finite, the update program the new parameters and Adam state
 tensor (the boundary loss's ramp reads it) and ``frozen`` is static: two
 entries of the forward program, as in JAX (a frozen step's encoder
 gradients are zeroed between the programs, with one foreach op). No step
-syncs with the host between its upload and its update. The eval step and
+syncs with the host between its upload and its update; its host time is
+three spans keyed by ``state.step`` (``core/trace.py``): ``train.forward``,
+``train.backward`` and ``train.update``. The eval step and
 the predict step are one program each; the eval step counts its
 confusion matrices with a fixed length (``losses.metrics.bin_counts``).
 
@@ -72,6 +74,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from deadtrees_tpu_torch.core import trace
 from deadtrees_tpu_torch.core.compile_opts import Program
 from deadtrees_tpu_torch.losses.functional import class2one_hot
 from deadtrees_tpu_torch.losses.metrics import bin_counts, fscore
@@ -237,23 +240,27 @@ def make_train_step(
         else:
             model.train(True, encoder_train=not frozen)
         model.zero_grad(set_to_none=True)
-        total, metrics, finite = forward_program(
-            batch["image"], batch["mask"], batch.get("distmap"), epochs(epoch))
+        key = state.step
+        with trace.span("train.forward", key=key):
+            total, metrics, finite = forward_program(
+                batch["image"], batch["mask"], batch.get("distmap"), epochs(epoch))
         # eagerly, the checkpointed forward's recompute in backward moves the
         # running statistics a second time; a compiled program's does not
         restore = remat and forward_program.options() is None
-        after_forward = [b.clone() for b in buffers] if restore else None
-        with global_batch(mesh):  # a checkpointed forward's recompute reduces too
-            total.backward()
-        if restore:
-            _restore(buffers, after_forward)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        if frozen:
-            encoder_grad_mask(model, grads)
-        state.optimizer.load_grads(grads)
-        model.zero_grad(set_to_none=True)
-        all_reduce_mean_(state.optimizer.grad, mesh)
-        metrics["grad_norm"] = update_program(state.optimizer, finite)
+        with trace.span("train.backward", key=key):
+            after_forward = [b.clone() for b in buffers] if restore else None
+            with global_batch(mesh):  # a checkpointed forward's recompute reduces too
+                total.backward()
+            if restore:
+                _restore(buffers, after_forward)
+        with trace.span("train.update", key=key):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            if frozen:
+                encoder_grad_mask(model, grads)
+            state.optimizer.load_grads(grads)
+            model.zero_grad(set_to_none=True)
+            all_reduce_mean_(state.optimizer.grad, mesh)
+            metrics["grad_norm"] = update_program(state.optimizer, finite)
         state.step += 1
         return state, metrics
 

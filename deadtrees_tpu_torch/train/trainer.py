@@ -33,7 +33,9 @@ and :func:`train` runs the recipe:
 - a CSV metrics log (W&B when ``logger.kind: wandb`` and the package
   imports), confusion-matrix and sample figures per val epoch (skipped
   when matplotlib is absent), a ``torch.profiler`` trace into
-  ``trainer.profiler_dir``, and the per-file sample counters.
+  ``trainer.profiler_dir`` (``trace.json``) with the port's own spans of
+  the same fit beside it (``spans.json``, a chrome trace on the same
+  clock: ``core/trace.py``), and the per-file sample counters.
 
 ``Trainer.timings`` keeps the host-clock seconds of each epoch, each
 checkpoint save as the loop sees it, the resume load, the SWA BatchNorm
@@ -84,6 +86,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from deadtrees_tpu_torch.core import trace
 from deadtrees_tpu_torch.core.artifacts import pointer_path
 from deadtrees_tpu_torch.core.checkpoint import (
     AsyncCheckpointWriter,
@@ -539,15 +542,25 @@ class Trainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        was_on = trace.ENABLED
+        trace.enable()  # the port's own spans of the profiled fit, beside the profiler's
+        since = time.time_ns()
         prof = profile(activities=activities)
         prof.start()
         try:
             yield
         finally:
             prof.stop()
+            snap = trace.snapshot()
+            if not was_on:  # spans the fit turned on: not kept past their file
+                trace.disable()
+                trace.reset()
             out = Path(profiler_dir)
             out.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(out / "trace.json"))
+            trace.write_chrome(out / "spans.json",
+                               [s for s in snap["spans"] if s.start_ns >= since],
+                               snap["counters"], trace.trace_base_ns(out / "trace.json"))
 
     def fit(self) -> Dict[str, Any]:
         self._build()
