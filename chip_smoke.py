@@ -11,7 +11,10 @@ Phases (each raises on failure, so the script exits non-zero):
    the card against their plain PyTorch versions on the same CUDA tensors,
    at all 22 decoder-block shapes of the flagship at 512² (bs 4, float32
    and bfloat16) and at 256² and 1024² (bs 1, bfloat16), a ragged shape
-   and the generalized modes.
+   and the generalized modes. The EDT's two kernels (``ops/edt.py``) at
+   the training batch's distance maps (16 × 3 × 512²) bit-equal to their
+   plain version, one launch each, with their time, their host time a
+   call, the plain version's time and their bounds.
 3. The slice at full width: the EfficientUnet++/b5 flagship from a seeded
    generator, saved with the port's ``save_checkpoint`` and served through
    ``TorchInference(fused_decoder="auto")`` at bs 1, 4, 32 (fused) and 64
@@ -92,7 +95,9 @@ Phases (each raises on failure, so the script exits non-zero):
    this process (parameters, BN statistics, ``mu``, ``nu`` and ``count``
    bit-equal to the file on load), runs epochs 1-3, SWA with its BN
    recalibration, and the test after training on the best checkpoint;
-   kernel 4 launches once a train step and once a recalibration batch;
+   kernel 4 launches once a train step and once a recalibration batch, the
+   EDT's two kernels once each a batch that gets distance maps (train,
+   val, recalibration and test batches, counted at the data module);
    ``swa.ckpt`` and the best checkpoint serve through ``TorchInference``.
    Run C, ``python -m deadtrees_tpu_torch eval`` on the best checkpoint
    with ``tta=8`` and without, prints the whole ``test/*`` set over the
@@ -321,6 +326,7 @@ FAT_BLOCKS = 14  # decoder blocks the NHWC route sends to the fat-cell kernels a
 AGREE_QUANT = 0.95  # tests/test_quantize.py:87, tests/test_act_quant.py:95
 TTA_MISMATCH = 1e-2  # near-ties of the bf16 logits between two orientations
 EDT_BAR = 1e-4
+EDT_KERNELS = ("edt_columns", "edt_rows")
 TRAIN_BS = 16
 # phase 17: the model zoo at the repo's full width, the configurations of
 # configs/model/unet.yaml, the architecture grid's ResNet row
@@ -458,7 +464,7 @@ def phase_device():
         for line in _build.ptxas_log(name).splitlines():
             m = re.search(
                 r"(pass\d_(?:bf16_)?kernel|nhwc_p\d_(?:bf16_)?kernel|dw_tile_kernel"
-                r"|augment_[a-z]+_kernel)"
+                r"|augment_[a-z]+_kernel|edt_[a-z]+_kernel)"
                 r"(I\w*?E)?E", line)
             if m:
                 entry = f"{m.group(1)}<{(m.group(2) or '')[1:-1]}>"
@@ -577,6 +583,50 @@ def phase_kernels(model, errs):
         x32 = torch.randn((3, cin, hh, ww), generator=gen).cuda()
         for x in (x32, x32.to(torch.bfloat16)):
             check_case(label, x, fp, errs, activation=act, ksize=k, skip=skip)
+
+
+def phase_edt_kernels(card: str) -> None:
+    """Phase 2's EDT: the two kernels against the plain version on the card
+    at the training batch's one-hot (16 × 3 × 512², 32-pixel class regions,
+    one tile of class 0 alone), bit for bit, one launch each; their time
+    beside the plain version's and their bounds."""
+    import torch
+
+    from deadtrees_tpu_torch.losses.functional import (
+        batch_one_hot2dist,
+        batch_one_hot2dist_reference,
+        class2one_hot,
+    )
+    from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    rng = np.random.default_rng(SEED + 9)
+    seg = torch.from_numpy(rng.integers(0, 3, (TRAIN_BS, 16, 16)))
+    seg = seg.repeat_interleave(IMG // 16, 1).repeat_interleave(IMG // 16, 2)
+    seg[1] = 0  # classes 1 and 2 absent: zero maps
+    one_hot = class2one_hot(seg.cuda(), 3)
+    reset_launch_counts()
+    got = batch_one_hot2dist(one_hot)
+    torch.cuda.synchronize()
+    counts = {k: LAUNCHES[k] for k in EDT_KERNELS}
+    want = batch_one_hot2dist_reference(one_hot)
+    if counts != dict.fromkeys(EDT_KERNELS, 1):
+        raise AssertionError(f"EDT launches {counts}, expected one of each")
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"the EDT kernels differ from the plain version by up to "
+                             f"{max_err(got, want)}")
+    ms = cuda_time_ms(lambda: batch_one_hot2dist(one_hot))
+    host = host_ms_per_call(lambda: batch_one_hot2dist(one_hot), calls=50)
+    plain_ms = cuda_time_ms(lambda: batch_one_hot2dist_reference(one_hot), reps=3, warmup=1)
+    pixels = one_hot.numel()
+    bytes_ms = 8 * pixels / HBM_BYTES_PER_S * 1e3  # the one-hot read, the maps written
+    design_ms = 32 * pixels / HBM_BYTES_PER_S * 1e3  # columns 20 B a pixel, rows 12 B
+    pairs = 2 * pixels * IMG  # (x, x') pairs of both halves
+    ops_ms = 3 * pairs / F32_FLOP_PER_S * 1e3  # an FMA and a min a pair
+    log(f"EDT kernels at {tuple(one_hot.shape)} on {card}: bit-equal to the plain version, "
+        f"launches {counts}; {ms:.4f} ms (CUDA events, median of 21), host {host:.4f} ms a "
+        f"call; plain {plain_ms:.3f} ms (median of 3); bounds: bytes {bytes_ms:.4f} ms (read "
+        f"and written once; the design's 32 B a pixel {design_ms:.4f} ms), operations "
+        f"{ops_ms:.4f} ms ({pairs / 1e9:.2f} G (sum, min) pairs, 3 FLOPs each)")
 
 
 # ---------------------------------------------------------------------------
@@ -2169,6 +2219,7 @@ def phase_recipe(card: str) -> dict:
     from deadtrees_tpu_torch.core import load_checkpoint, save_checkpoint, snapshot
     from deadtrees_tpu_torch.core.checkpoint import _build_payload, _encode
     from deadtrees_tpu_torch.core.msgpack_codec import unpackb
+    from deadtrees_tpu_torch.data.pipeline import DeadtreesDataModule
     from deadtrees_tpu_torch.infer import TorchInference
     from deadtrees_tpu_torch.models import variables_from_state_dict
     from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
@@ -2243,8 +2294,21 @@ def phase_recipe(card: str) -> dict:
     cfg = compose(REPO / "configs", overrides=recipe_overrides(data, run_b)
                   + [f"trainer.resume_from_checkpoint={last_a}"])
     trainer = CheckedTrainer(cfg, work_dir=run_b)
+    finish = DeadtreesDataModule._finish_batch
+    mapped = []  # one entry a finished batch (train, val, recalibration, test) that got maps
+
+    def counted(self, *args, **kwargs):
+        batch = finish(self, *args, **kwargs)
+        if "distmap" in batch:
+            mapped.append(1)
+        return batch
+
     reset_launch_counts()
-    result = train(cfg, work_dir=run_b, trainer=trainer)
+    DeadtreesDataModule._finish_batch = counted
+    try:
+        result = train(cfg, work_dir=run_b, trainer=trainer)
+    finally:
+        DeadtreesDataModule._finish_batch = finish
     counts = dict(LAUNCHES)
     steps = trainer.state.step - out["run_a_step"]
     lr = cfg["model"]["training"]["learning_rate"]
@@ -2257,7 +2321,12 @@ def phase_recipe(card: str) -> dict:
     if counts[AUGMENT] != steps + trainer.swa_bn_batches:
         raise AssertionError(f"augment launches {counts[AUGMENT]} for {steps} train steps and "
                              f"{trainer.swa_bn_batches} recalibration batches")
-    if any(v for k, v in counts.items() if k != AUGMENT):
+    if counts["edt_columns"] != len(mapped) or counts["edt_rows"] != len(mapped) \
+            or len(mapped) < steps + trainer.swa_bn_batches:
+        raise AssertionError(f"EDT launches {counts} for {len(mapped)} batches with maps "
+                             f"({steps} train steps, {trainer.swa_bn_batches} recalibration "
+                             "batches and the val and test batches): expected 1 + 1 a batch")
+    if any(v for k, v in counts.items() if k not in (AUGMENT, *EDT_KERNELS)):
         raise AssertionError(f"the recipe launched another kernel: {counts}")
     if abs(stage - 1 / 3) > 1e-9 or int(trainer.state.optimizer.count) != 2 * TRAIN_STEPS:
         raise AssertionError(f"the stage at the end: lr x {stage}, count "
@@ -2273,6 +2342,7 @@ def phase_recipe(card: str) -> dict:
         raise AssertionError(f"figures without matplotlib: {figures}")
     out.update(
         launches=counts[AUGMENT], train_steps=steps, swa_bn_batches=trainer.swa_bn_batches,
+        edt_columns=counts["edt_columns"], edt_rows=counts["edt_rows"], edt_batches=len(mapped),
         resume_checked_leaves=trainer.checked_leaves,
         resume_load_s=trainer.timings["resume_s"][0],
         epochs=[{"epoch": e, "wall_s": w, "steps_per_s": float(r["steps_per_sec"]),
@@ -2284,7 +2354,9 @@ def phase_recipe(card: str) -> dict:
     log(f"run B (train() in this process, resumed at epoch 1 from run A): {out['resume_checked_leaves']} "
         f"leaves (parameters, BN statistics, mu, nu, counts) bit-equal to the file on load "
         f"in {out['resume_load_s']:.3f} s; {steps} train steps + {trainer.swa_bn_batches} SWA "
-        f"recalibration batches = {counts[AUGMENT]} augment launches; lr x {stage:.6f} and "
+        f"recalibration batches = {counts[AUGMENT]} augment launches; {len(mapped)} batches "
+        f"with distance maps (train, val, recalibration, test) = {counts['edt_columns']} + "
+        f"{counts['edt_rows']} EDT launches; lr x {stage:.6f} and "
         f"count {trainer.state.optimizer.count} at the end (fresh Adam at epoch 2)")
     for e in out["epochs"]:
         log(f"  epoch {e['epoch']}: {e['wall_s']:.3f} s wall (train, val, save), "
@@ -4149,6 +4221,7 @@ def main() -> int:
         with disable_compile():
             model = model.cuda().eval()
             phase_kernels(model, errs)
+            phase_edt_kernels(card)
 
             fused, plain = phase_slice(ckpt, hp)
             counts = phase_server(ckpt)

@@ -3,6 +3,7 @@ from deadtrees_tpu_torch.ops.augment import (
     augment_jitter_normalize_reference,
 )
 from deadtrees_tpu_torch.ops.depthwise import depthwise_conv2d, depthwise_conv2d_reference
+from deadtrees_tpu_torch.ops.edt import signed_distance_maps
 from deadtrees_tpu_torch.ops.fused_cell import fused_ir_fat, fused_ir_fat_reference
 from deadtrees_tpu_torch.ops.fused_decoder import (
     apply_head,
@@ -51,4 +52,5 @@ __all__ = [
     "fused_ir_fat",
     "fused_ir_fat_reference",
     "reset_launch_counts",
+    "signed_distance_maps",
 ]

@@ -29,7 +29,7 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("fused_ir_chw", "fused_ir_nhwc", "depthwise", "augment")
+SOURCES = ("fused_ir_chw", "fused_ir_nhwc", "depthwise", "augment", "edt")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -24,6 +24,8 @@ LAUNCHES = {
     "fused_inverted_residual_pass2": 0,  # ops/fused_mbconv.py
     "depthwise_conv2d": 0,  # ops/depthwise.py
     "augment_jitter_normalize": 0,  # ops/augment.py
+    "edt_columns": 0,  # ops/edt.py
+    "edt_rows": 0,  # ops/edt.py
 }
 
 

@@ -1,16 +1,17 @@
 """The port's kernels as custom ops, and the compile options.
 
 Each of the five kernels is a ``torch.library`` custom op of the port's
-``deadtrees`` namespace (kernel 1's two passes, the NHWC pair as kernel 2
-and as kernel 3, the augment kernel, the depthwise kernel): eight ops,
-each checked here by ``torch.library.opcheck`` on CPU tensors (its
-schema, its fake implementation's shapes and dtypes, and its run under
-AOTAutograd), where the op runs the kernel's plain version. The compile
-options of ``core/compile_opts.py`` are checked against their rules, the
+``deadtrees`` namespace (kernel 1's two passes, the NHWC pair as kernel
+2 and as kernel 3, the augment kernel, the depthwise kernel), and so are
+the EDT's two kernels (one op): nine ops, each checked here by
+``torch.library.opcheck`` on CPU tensors (its schema, its fake
+implementation's shapes and dtypes, and its run under AOTAutograd),
+where the op runs the kernel's plain version. The compile options of
+``core/compile_opts.py`` are checked against their rules, the
 fixed-length counts of the eval step against ``torch.bincount``, and the
-optimizer's update compiled with inductor on the CPU (one compile thread,
-so that no worker pool starts inside the test's process) against the same
-update run eagerly.
+optimizer's update compiled with inductor on the CPU (one compile
+thread, so that no worker pool starts inside the test's process) against
+the same update run eagerly.
 """
 
 import os
@@ -34,6 +35,7 @@ from deadtrees_tpu_torch.losses.metrics import (
     confusion_matrix,
     masked_confusion_matrix,
 )
+from deadtrees_tpu_torch.losses.functional import class2one_hot
 from deadtrees_tpu_torch.ops import augment as taug
 from deadtrees_tpu_torch.ops import fused_cell as tfc
 from deadtrees_tpu_torch.ops import fused_mbconv as tfm
@@ -83,6 +85,9 @@ def _op_cases():
                                      (img, t(2) * 0.1 + 1, t(2) * 0.1, taug.image_mean(img),
                                       chan)),
         "depthwise_conv2d": (torch.ops.deadtrees.depthwise_conv2d, (xn, t(5, 5, 1, CIN), 2)),
+        "signed_distance_maps": (torch.ops.deadtrees.signed_distance_maps,
+                                 (class2one_hot(torch.from_numpy(
+                                     np.random.default_rng(2).integers(0, 3, (2, 9, 7))), 3),)),
     }
 
 

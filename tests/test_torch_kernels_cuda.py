@@ -9,7 +9,10 @@ without them:
 Bars: float32 max error < 1e-3·max(1, max|ref|) (CUDA-core float32 sums
 in another order); bfloat16 < 2e-2·max(1, max|ref|) (h and the output are
 rounded to bfloat16, and a rounding may land on the other side of a tie).
-The augment kernel rounds as its plain version does: bit-equal. The
+The augment kernel rounds as its plain version does: bit-equal; so do
+the EDT's two kernels with their plain version on the card (every bit,
+the sign of a zero included; torch's float32 sqrt on the CPU is not
+correctly rounded, one ulp off on some integers). The
 depthwise kernel sums the taps in the plain version's order: float32
 within 1e-5·max(1, max|ref|), bfloat16 within one rounding of the output.
 The tensor-core NHWC pass 2 keeps its sums at float32 level and rounds
@@ -18,9 +21,11 @@ max(1, max|ref|) (ULP_BAR). Kernel 3's float32 h from the tensor-core pass
 1 within K3_H_BAR·max(1, max|ref|) (the tensor cores' float32 sums).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from deadtrees_tpu_torch.losses import functional as tfn
 from deadtrees_tpu_torch.ops import augment as aug
 from deadtrees_tpu_torch.ops import depthwise as dwm
 from deadtrees_tpu_torch.ops import fused_cell as fc
@@ -532,8 +537,6 @@ def test_scene_batches_match_single_scenes_on_the_card(card, monkeypatch):
     a b0 at subtile 64: 5 scenes, 2 a dispatch, so both staging buffers are
     refilled and the tail group is padded. With CUDA hidden and no device
     asked for, the scene entry points raise."""
-    import numpy as np
-
     from deadtrees_tpu_torch.infer import make_scene_predictor, predict_scene, predict_scenes
     from deadtrees_tpu_torch.models import create_model, init_model
 
@@ -554,3 +557,90 @@ def test_scene_batches_match_single_scenes_on_the_card(card, monkeypatch):
         make_scene_predictor(model, subtile=64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         predict_scenes(model, scenes[:1], **kw)
+
+
+def _edt_masks(n=64):
+    """The 64² masks of the EDT's CPU tests (tests/test_torch_losses.py::_masks)."""
+    rng = np.random.default_rng(0)
+    masks = {
+        "random": rng.random((n, n)) > 0.7,
+        "all_false": np.zeros((n, n), bool),
+        "all_true": np.ones((n, n), bool),
+        "single_pixel": np.zeros((n, n), bool),
+        "blob": np.zeros((n, n), bool),
+    }
+    masks["single_pixel"][17, 40] = True
+    masks["blob"][10:30, 5:20] = True
+    return masks
+
+
+def _edt_case(name):
+    """A float32 one-hot (..., K, H, W) on the CPU."""
+    rng = np.random.default_rng(len(name))
+    if name == "cell":  # the training batch: 32-pixel class regions, one tile of class 0
+        seg = torch.from_numpy(rng.integers(0, 3, (16, 16, 16)))
+        seg = seg.repeat_interleave(32, 1).repeat_interleave(32, 2)
+        seg[1] = 0
+        seg[2] = torch.from_numpy(rng.integers(0, 3, (512, 512)))
+        return tfn.class2one_hot(seg, 3)
+    if name == "masks64":  # each mask as a class, its complement as the other
+        m = torch.from_numpy(np.stack(list(_edt_masks().values())))
+        return torch.stack([m, ~m], 1).float()
+    hh, ww = {"37x61": (37, 61), "1x300": (1, 300), "300x1": (300, 1),
+              "4x8192": (4, 8192)}[name]
+    return torch.from_numpy(rng.random((2, 2, hh, ww)) > 0.9).float()
+
+
+@pytest.mark.parametrize("name", ["cell", "masks64", "37x61", "1x300", "300x1", "4x8192"])
+def test_edt_kernels_match_plain(card, name):
+    """The two kernels against the plain version on the card, bit for bit,
+    with one launch of each; against the plain version on the CPU within
+    one ulp (the CPU's float32 sqrt is not correctly rounded)."""
+    seg = _edt_case(name)
+    dev = seg.to(card)
+    reset_launch_counts()
+    got = tfn.batch_one_hot2dist(dev)
+    torch.cuda.synchronize()
+    assert LAUNCHES["edt_columns"] == 1 and LAUNCHES["edt_rows"] == 1
+    assert got.shape == seg.shape and got.dtype == torch.float32
+    want = tfn.batch_one_hot2dist_reference(dev)
+    diff = float((got - want).abs().max())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), diff
+    if name != "cell":  # 96 planes of 512² take the CPU's plain version tens of seconds
+        cpu = tfn.batch_one_hot2dist_reference(seg)
+        torch.testing.assert_close(got.cpu(), cpu, rtol=2.0**-23, atol=0)
+
+
+def test_edt_kernels_absent_and_full_classes_and_scipy(card):
+    """An absent class reads a zero map, a class that fills the tile
+    -999,999 (sqrt(1e12) − 1); on the masks with both classes the maps
+    agree with scipy's exact EDT, as tests/test_torch_losses.py's
+    ``test_edt_matches_jax`` holds the plain version."""
+    from scipy.ndimage import distance_transform_edt
+
+    masks = _edt_masks()
+    got = tfn.batch_one_hot2dist(_edt_case("masks64").to(card)).cpu().numpy()
+    for i, (name, m) in enumerate(masks.items()):
+        cls = got[i, 0]
+        if name == "all_false":
+            assert not cls.any()
+        elif name == "all_true":
+            assert (cls == -999999.0).all()
+        else:
+            want = np.where(m, -(distance_transform_edt(m) - 1.0), distance_transform_edt(~m))
+            np.testing.assert_allclose(cls, want, rtol=0, atol=1e-5, err_msg=name)
+
+
+def test_edt_wrapper_raises_on_what_the_kernels_cannot_take(card):
+    """No fallback: the wrapper raises, and launches nothing."""
+    reset_launch_counts()
+    bad = [torch.zeros((2, 3, 8, 8), dtype=torch.float64, device=card),
+           torch.zeros((2, 3, 8, 8), dtype=torch.bool, device=card),
+           torch.zeros((1, 1, 8193, 1), device=card), torch.zeros((1, 1, 2, 8193), device=card),
+           torch.zeros((0, 3, 8, 8), device=card), torch.zeros((8,), device=card)]
+    for seg in bad:
+        with pytest.raises(ValueError):
+            tfn.batch_one_hot2dist(seg)
+        with pytest.raises(ValueError):
+            torch.ops.deadtrees.signed_distance_maps(seg)
+    assert LAUNCHES["edt_columns"] == LAUNCHES["edt_rows"] == 0

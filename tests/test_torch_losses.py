@@ -20,6 +20,7 @@ from deadtrees_tpu.train.loss import build_loss as jax_build_loss
 from deadtrees_tpu_torch.losses import functional as tfn
 from deadtrees_tpu_torch.losses import losses as tl
 from deadtrees_tpu_torch.losses import metrics as tm
+from deadtrees_tpu_torch.ops import edt as tedt
 from deadtrees_tpu_torch.train.loss import build_loss
 
 K = 3
@@ -67,7 +68,7 @@ def test_edt_row_chunks_cover_every_row(monkeypatch):
     """The row-block loop gives the same maps with blocks of a few rows."""
     masks = torch.from_numpy(np.stack(list(_masks().values())))
     want = tfn.edt(masks)
-    monkeypatch.setattr(tfn, "_ENVELOPE_FLOATS", 3 * 64 * 64)
+    monkeypatch.setattr(tedt, "_ENVELOPE_FLOATS", 3 * 64 * 64)
     torch.testing.assert_close(tfn.edt(masks), want, rtol=0, atol=0)
 
 
@@ -85,6 +86,31 @@ def test_one_hot2dist_matches_jax():
     assert not got[1, 2].any()
     one = tfn.one_hot2dist(tfn.class2one_hot(torch.from_numpy(seg[:1]), K)[0])
     np.testing.assert_allclose(one.numpy(), np.moveaxis(want[0], -1, 0), rtol=0, atol=1e-5)
+
+
+def test_one_hot2dist_on_the_cpu_is_the_custom_op_plain_version():
+    """On a CPU tensor ``batch_one_hot2dist`` goes through the custom op
+    ``deadtrees::signed_distance_maps``, whose CPU implementation is the
+    plain version: bit-equal to it, and no EDT kernel launched."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from deadtrees_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(func)
+            return func(*args, **(kwargs or {}))
+
+    seg = tfn.class2one_hot(torch.from_numpy(np.random.default_rng(4).integers(0, K, (2, 24, 40))),
+                            K)
+    seen = []
+    reset_launch_counts()
+    with Ops():
+        got = tfn.batch_one_hot2dist(seg)
+    assert seen == [torch.ops.deadtrees.signed_distance_maps.default]
+    assert LAUNCHES["edt_columns"] == LAUNCHES["edt_rows"] == 0
+    want = tfn.batch_one_hot2dist_reference(seg)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
 def test_one_hot_helpers_match_jax():
