@@ -16,6 +16,12 @@ zoo, in both directions:
 - :func:`variables_from_state_dict` — the same table read the other way,
   so the port writes checkpoints the JAX package loads.
 
+The MiT encoders in smp's layout (``models/mit.py``) have no JAX
+counterpart; their tree is the port's own (``encoder/patch_embed{s}/proj``,
+``encoder/block{s}_{i}/attn/kv``, ... : the torch names, kernels in flax's
+layout), so that the port's checkpoints of a U-Net-family decoder on them
+round-trip.
+
 Both walk one explicit key table, built from the model's structure
 (:func:`_spec_from_params` reads it off a flax tree, :func:`_spec_from_state_dict`
 off a state dict), so a missing or misshaped tensor fails loudly instead
@@ -186,6 +192,29 @@ def _rupp_attention_table(
     return table
 
 
+def _mit_encoder_table(depths: Sequence[int]) -> List[_Entry]:
+    """smp's MiT keys (``models/mit.py``) ↔ a tree of the same names."""
+    table: List[_Entry] = []
+    for s, depth in enumerate(depths, start=1):
+        f, tp = ("encoder", f"patch_embed{s}"), f"encoder.patch_embed{s}"
+        table += [(f + ("proj",), f"{tp}.proj", "conv"), (f + ("norm",), f"{tp}.norm", "ln")]
+        for i in range(depth):
+            f, tp = ("encoder", f"block{s}_{i}"), f"encoder.block{s}.{i}"
+            table += [(f + ("norm1",), f"{tp}.norm1", "ln")]
+            table += [(f + ("attn", n), f"{tp}.attn.{n}", "dense") for n in ("q", "kv", "proj")]
+            if SR_RATIOS[s - 1] > 1:
+                table += [(f + ("attn", "sr"), f"{tp}.attn.sr", "conv"),
+                          (f + ("attn", "norm"), f"{tp}.attn.norm", "ln")]
+            table += [
+                (f + ("norm2",), f"{tp}.norm2", "ln"),
+                (f + ("mlp", "fc1"), f"{tp}.mlp.fc1", "dense"),
+                (f + ("mlp", "dwconv"), f"{tp}.mlp.dwconv.dwconv", "conv"),
+                (f + ("mlp", "fc2"), f"{tp}.mlp.fc2", "dense"),
+            ]
+        table.append((("encoder", f"norm{s}"), f"encoder.norm{s}", "ln"))
+    return table
+
+
 def _decoder_table(spec: Spec) -> List[_Entry]:
     arch, attention = spec["architecture"], spec.get("attention")
     table: List[_Entry] = []
@@ -204,7 +233,7 @@ def _decoder_table(spec: Spec) -> List[_Entry]:
         table += _aspp_table(("decoder", "center"), "decoder.center")
     for i in range(spec["n_blocks"]):
         fpath, tp = ("decoder", f"block_{i}"), f"decoder.blocks.{i}"
-        has_skip = i < _N_SKIPS
+        has_skip = i < spec.get("skips", _N_SKIPS)
         if arch == "resunetplusplus":
             table += _rupp_attention_table(
                 fpath + ("RUPPAttentionBlock_0",), f"{tp}.attention0", has_skip
@@ -266,6 +295,8 @@ def _model_table(spec: Spec) -> List[_Entry]:
         return _segformer_table(spec["depths"])
     if spec["encoder"] == "resnet":
         table = _resnet_encoder_table(spec["stage_sizes"], spec["block"])
+    elif spec["encoder"] == "mit":
+        table = _mit_encoder_table(spec["depths"])
     else:
         table = _effnet_encoder_table(spec["repeats"])
     table += _decoder_table(spec)
@@ -307,6 +338,23 @@ def _mit_depths(n_blocks: int, encoder_name: Optional[str]) -> Tuple[int, ...]:
     raise ValueError(f"no MiT variant has {n_blocks} blocks")
 
 
+def _mit_spec(blocks: Sequence[str]) -> Spec:
+    """A MiT encoder's depths from its blocks' names (``block{s}.{i}``);
+    its pyramid's stride-2 level is empty, so a linear decoder takes 3
+    skips."""
+    stages = [b.split(".")[0] for b in set(blocks)]
+    return {"encoder": "mit", "skips": _N_SKIPS - 1,
+            "depths": tuple(stages.count(f"block{s}") for s in range(1, 5))}
+
+
+def _unetpp_cells(cells: Sequence[str], depth: int, spec: Spec):
+    """(cell, has a skip) of a UNet++ grid: every cell but the last has
+    one, and on a MiT encoder neither has the cell above the empty level,
+    whose grid predecessors are all of width 0."""
+    bare = {f"x_0_{depth}"} | ({f"x_0_{depth - 1}"} if spec.get("encoder") == "mit" else set())
+    return [(c, c not in bare) for c in cells]
+
+
 def _attention_in(names) -> Optional[str]:
     for name in names:
         if name.startswith("SCSEModule_") or ".attention.cSE." in name:
@@ -331,6 +379,9 @@ def _spec_from_params(params: Dict, encoder_name: Optional[str]) -> Spec:
         if n:
             spec.update(encoder="resnet", block=block,
                         stage_sizes=_resnet_stage_sizes(block, n, encoder_name))
+    if "patch_embed1" in enc:
+        spec.update(_mit_spec([f"block{k[5:].replace('_', '.')}" for k in enc
+                               if k.startswith("block")]))
     if "encoder" not in spec:
         n = sum(1 for k in enc if k.startswith("MBConv_"))
         spec.update(encoder="effnet", repeats=_repeats_for(n, encoder_name))
@@ -347,7 +398,7 @@ def _spec_from_params(params: Dict, encoder_name: Optional[str]) -> Spec:
             ]
         else:
             spec["architecture"] = "unetplusplus"
-            spec["cells"] = [(c, c != f"x_0_{depth}") for c in sorted(grid)]
+            spec["cells"] = _unetpp_cells(sorted(grid), depth, spec)
         blocks = list(grid.values())
     else:
         blocks = [v for k, v in decoder.items() if k.startswith("block_")]
@@ -374,6 +425,9 @@ def _spec_from_state_dict(sd: Dict[str, Any], encoder_name: Optional[str]) -> Sp
         n = len({".".join(k.split(".")[:3]) for k in sd if k.startswith("encoder.layer")})
         spec.update(encoder="resnet", block=block,
                     stage_sizes=_resnet_stage_sizes(block, n, encoder_name))
+    elif "encoder.patch_embed1.proj.weight" in sd:
+        spec.update(_mit_spec([".".join(k.split(".")[1:3]) for k in sd
+                               if k.startswith("encoder.block")]))
     else:
         n = len({".".join(k.split(".")[:4]) for k in sd if k.startswith("encoder.blocks.")})
         spec.update(encoder="effnet", repeats=_repeats_for(n, encoder_name))
@@ -390,7 +444,7 @@ def _spec_from_state_dict(sd: Dict[str, Any], encoder_name: Optional[str]) -> Sp
             ]
         else:
             spec["architecture"] = "unetplusplus"
-            spec["cells"] = [(c, c != f"x_0_{depth}") for c in cells]
+            spec["cells"] = _unetpp_cells(cells, depth, spec)
     else:
         spec["n_blocks"] = len({k.split(".")[2] for k in dec_keys
                                 if k.startswith("decoder.blocks.")})

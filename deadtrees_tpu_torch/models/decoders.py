@@ -13,9 +13,11 @@ Counterpart of ``deadtrees_tpu.models.decoders``:
   names ``blocks.x_{depth}_{layer}``.
 
 Every decoder takes the smp feature pyramid ``[x, f1..f5]`` and drops the
-full-resolution entry. The JAX package's env-gated partwise / low-res
-layout experiments (off by default) compute the same numbers and are not
-ported.
+full-resolution entry. A level of 0 channels (the empty stride-2 level of
+a MiT encoder, ``models/mit.py``) is no skip: the blocks that would take
+it take none, and the dense grid builds no cell of width 0. The JAX
+package's env-gated partwise / low-res layout experiments (off by
+default) compute the same numbers and are not ported.
 """
 
 from __future__ import annotations
@@ -128,9 +130,10 @@ class EffUnetPlusPlusDecoderBlock(nn.Module):
         return self.conv2(self.conv1(x))
 
 
-def _prep_features(features: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Drop the full-resolution feature, reverse to deepest-first."""
-    return list(features[1:])[::-1]
+def _prep_features(features: Sequence[torch.Tensor]) -> List[Optional[torch.Tensor]]:
+    """Drop the full-resolution feature, reverse to deepest-first; a level
+    of 0 channels (a MiT encoder's empty stride-2 level) is None: no skip."""
+    return [f if f.shape[1] else None for f in list(features[1:])[::-1]]
 
 
 def linear_blocks(
@@ -259,6 +262,7 @@ class _DenseGridDecoder(nn.Module):
                 for name, (cin, skip, cout) in dense_grid_cells(
                     encoder_channels, decoder_channels
                 ).items()
+                if cout
             }
         )
 
@@ -272,13 +276,16 @@ class _DenseGridDecoder(nn.Module):
         for layer in range(depth):
             for d in range(depth - layer):
                 li = d + layer
+                name = f"x_{d}_{li}"
+                if name not in self.blocks:  # a cell of width 0
+                    continue
                 if layer == 0:
-                    dense[(d, d)] = self.blocks[f"x_{d}_{d}"](feats[d], feats[d + 1])
+                    dense[(d, d)] = self.blocks[name](feats[d], feats[d + 1])
                 else:
-                    cat = [dense[(idx, li)] for idx in range(d + 1, li + 1)]
-                    dense[(d, li)] = self.blocks[f"x_{d}_{li}"](
-                        dense[(d, li - 1)], cat + [feats[li + 1]]
-                    )
+                    cat = [dense[(idx, li)] for idx in range(d + 1, li + 1)
+                           if (idx, li) in dense]
+                    cat += [feats[li + 1]] if feats[li + 1] is not None else []
+                    dense[(d, li)] = self.blocks[name](dense[(d, li - 1)], cat or None)
         return self.blocks[f"x_0_{depth}"](dense[(0, depth - 1)])
 
 

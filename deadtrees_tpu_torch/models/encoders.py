@@ -1,5 +1,8 @@
 """ResNet-18/34/50 and EfficientNet-B0..B7 feature extractors (PyTorch, NCHW).
 
+(The MiT encoders mit_b0 … mit_b5, which :func:`get_encoder` also builds,
+are in ``models/mit.py``.)
+
 Counterpart of ``deadtrees_tpu.models.encoders``. The ResNets keep the
 torchvision key scheme smp's resnet encoders load (``conv1``, ``bn1``,
 ``layer{1..4}.{block}.conv{1,2[,3]} / bn{1,2[,3]} / downsample.0 / .1``);
@@ -374,23 +377,30 @@ def get_encoder(
     weights: Optional[str] = None,
     **encoder_options,
 ) -> Tuple[nn.Module, Tuple[int, ...]]:
-    """Build an encoder module + its ``out_channels`` tuple.
+    """Build an encoder module + its ``out_channels`` tuple: one of
+    :data:`ENCODERS` (the JAX package's), or a MiT encoder ``mit_b0`` …
+    ``mit_b5`` in smp's layout (``models/mit.py``, no JAX counterpart).
 
     ``encoder_options`` (``bn_eps`` / ``pad_type``; None means the family
     default) select the EfficientNet forward convention documented in
-    docs/encoder_audit.md; a ResNet raises ``TypeError`` for any option
-    that is not None (torchvision's conventions are fully determined).
+    docs/encoder_audit.md; a ResNet or a MiT raises ``TypeError`` for any
+    option that is not None (their conventions are fully determined).
     """
+    from deadtrees_tpu_torch.models import mit
+
     key = name.lower().strip()
-    if key not in ENCODERS:
-        raise ValueError(f"Unknown encoder '{name}'. Available: {sorted(ENCODERS)}")
+    if key not in ENCODERS and key not in mit.MIT_ENCODERS:
+        raise ValueError(f"Unknown encoder '{name}'. Available: "
+                         f"{sorted(ENCODERS) + sorted(mit.MIT_ENCODERS)}")
     if weights == "imagenet":
         log.warning(
             "encoder_weights='imagenet' requested but this environment has no "
             "network egress; initializing randomly. Load converted weights "
             "through a checkpoint to restore parity."
         )
+    opts = {k: v for k, v in encoder_options.items() if v is not None}
+    if key in mit.MIT_ENCODERS:
+        return mit.build(key, in_channels, **opts)
     entry = ENCODERS[key]
     out_channels = (in_channels,) + tuple(entry["out_channels"][1:])
-    opts = {k: v for k, v in encoder_options.items() if v is not None}
     return entry["builder"](in_channels, **opts), out_channels

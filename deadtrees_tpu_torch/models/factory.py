@@ -3,7 +3,10 @@
 Counterpart of ``deadtrees_tpu.models.factory``: the six architectures of
 the JAX package — Unet, Unet++, ResUnet, ResUnet++ and EfficientUnet++ on
 any encoder of ``models/encoders.py`` (ResNet-18/34/50, EfficientNet-b0..b7),
-and SegFormer on mit-b0..b2 (``models/segformer.py``).
+and SegFormer on mit-b0..b2 (``models/segformer.py``). Beyond the JAX
+package, the five U-Net-family decoders also run on the MiT encoders
+mit_b0 … mit_b5 in smp's layout (``models/mit.py``; smp's
+``Unet(encoder_name="mit_b5")``).
 
 ``dtype`` means "compute in this type": the forward runs under
 ``torch.autocast`` for it, and parameters stay float32.
@@ -168,11 +171,15 @@ def create_model(
     ``encoder_bn_eps`` / ``encoder_pad_type`` win over it. A ResNet
     encoder raises ``TypeError`` when either is set.
 
-    ``decoder_attention_type`` (None, ``"se"`` or ``"scse"``) applies to the
-    four Unet-family decoders; efficientunet++ and segformer raise
-    ``ValueError`` for it. SegFormer takes ``encoder_name`` when it names a
-    MiT variant (mit-b0..b2), else mit-b0, as the JAX factory does; it has
-    no decoder widths and no encoder options.
+    ``encoder_name`` names a ResNet, an EfficientNet (``timm-`` or not) or
+    a MiT encoder in smp's layout (``mit_b0`` … ``mit_b5``, with an
+    underscore, for the U-Net-family decoders); an unknown name raises
+    ``ValueError`` with the list. ``decoder_attention_type`` (None,
+    ``"se"`` or ``"scse"``) applies to the four Unet-family decoders;
+    efficientunet++ and segformer raise ``ValueError`` for it. SegFormer
+    takes ``encoder_name`` when it names one of its own MiT variants
+    (mit-b0..b2, with a hyphen), else mit-b0, as the JAX factory does; it
+    has no decoder widths and no encoder options.
     """
     if encoder_options:
         unknown = set(encoder_options) - {"bn_eps", "pad_type"}

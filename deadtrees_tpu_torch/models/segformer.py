@@ -16,8 +16,9 @@ GELU (``jax.nn.gelu``'s default), attention logits and softmax in float32
 cast to the compute type after the softmax, the spatial-reduction conv
 padded as flax's ``"SAME"``, and half-pixel bilinear resizes
 (``F.interpolate(align_corners=False)``, which clamps at the borders as
-``jax.image.resize`` renormalizes there). Attention is plain
-``torch.matmul`` + softmax, as the JAX package computes it with ``einsum``.
+``jax.image.resize`` renormalizes there). Attention on the CPU is plain
+``torch.matmul`` + softmax, as the JAX package computes it with ``einsum``;
+on CUDA it is one fused kernel (:func:`attention`).
 
 There is no reference checkpoint of this model, so its state-dict keys
 are the port's own (``patch_embed.{s}``, ``patch_norm.{s}``,
@@ -25,6 +26,11 @@ are the port's own (``patch_embed.{s}``, ``patch_norm.{s}``,
 attn.v / attn.proj / norm2 / ffn.fc1 / ffn.dw / ffn.fc2``,
 ``stage_norm.{s}``, ``decode_proj.{s}``, ``decode_fuse``, ``decode_bn``,
 ``classifier``); ``models/convert.py`` maps them onto the flax tree.
+
+The attention and the Mix-FFN are shared with the MiT encoder in smp's
+layout (``models/mit.py``), which subclasses them under smp's names and
+with the published arithmetic (exact GELU, LayerNorm eps 1e-5 after the
+spatial reduction).
 """
 
 from __future__ import annotations
@@ -35,7 +41,9 @@ from typing import List
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from deadtrees_tpu_torch.core import trace
 from deadtrees_tpu_torch.models.blocks import BatchNorm2d
 from deadtrees_tpu_torch.models.encoders import _tf_same_pads
 
@@ -71,9 +79,59 @@ def _to_seq(x: torch.Tensor) -> torch.Tensor:
     return x.flatten(2).transpose(1, 2)
 
 
+# the fused backend of :func:`attention` on CUDA, pinned: a call it cannot
+# take raises (no other backend is tried). cuDNN's: a forward and backward
+# of the MiT-B5 U-Net's attention at bs 8, 1024², took 29.1 ms against
+# flash's 46.1 ms on an H100 (tools/time_attention.py)
+FUSED_BACKEND = SDPBackend.CUDNN_ATTENTION
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``softmax(q kᵀ / √d) v`` by the pinned fused backend alone
+    (``F.scaled_dot_product_attention`` under ``sdpa_kernel``): bf16 or
+    fp16 operands, products summed in float32, the softmax in float32 and
+    P rounded to the operands' type for the PV product, as the plain path
+    computes it. Raises ``RuntimeError`` where that backend cannot take
+    the input (float32 operands, a head size it has no kernel for)."""
+    with sdpa_kernel(FUSED_BACKEND):
+        return F.scaled_dot_product_attention(q, k, v)
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``softmax(q kᵀ / √d) v`` op by op: the logits from the operands
+    taken to float32, the softmax in float32, P cast back to q's type for
+    the PV product (the JAX module's arithmetic)."""
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        attn = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(attn, v)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Scaled dot-product attention over (B, heads, N, d) queries and
+    (B, heads, M, d) keys and values. bf16 / fp16 operands on CUDA take
+    :func:`fused_attention`, which saves no N × M matrix for the backward
+    pass; CPU tensors and float32 operands (a float32 model, which neither
+    fused backend takes) :func:`plain_attention`. The counter
+    ``model.attention_fused`` (``core/trace.py``) adds 1 a fused call and
+    0 a plain one."""
+    fused = q.is_cuda and q.dtype in (torch.bfloat16, torch.float16)
+    if trace.ENABLED:
+        trace.add("model.attention_fused", float(fused))
+    return fused_attention(q, k, v) if fused else plain_attention(q, k, v)
+
+
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, N, heads·d) → (B, heads, N, d)."""
+    b, n, dim = t.shape
+    return t.reshape(b, n, heads, dim // heads).transpose(1, 2)
+
+
 class EfficientAttention(nn.Module):
     """Self-attention with spatially reduced keys and values (SegFormer
-    eq. 2): a k = s = ``sr_ratio`` conv and a LayerNorm before K and V."""
+    eq. 2): a k = s = ``sr_ratio`` conv and a LayerNorm before K and V.
+    Subclasses change how the reduction is padded and normed
+    (:meth:`reduce`) and how K and V are projected (:meth:`keys_values`)."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int):
         super().__init__()
@@ -87,30 +145,26 @@ class EfficientAttention(nn.Module):
         self.v = nn.Linear(dim, dim)
         self.proj = nn.Linear(dim, dim)
 
+    def reduce(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """The K / V input: the spatially reduced, normed token sequence."""
+        sp = _to_map(x, h, w)
+        (pt, pb), (pl, pr) = _tf_same_pads(sp.shape, self.sr_ratio, self.sr_ratio)
+        return self.sr_norm(_to_seq(self.sr(F.pad(sp, [pl, pr, pt, pb]))))
+
+    def keys_values(self, t: torch.Tensor):
+        return self.k(t), self.v(t)
+
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         b, n, dim = x.shape
-        head_dim = dim // self.num_heads
-        q = self.q(x)
-        kv_in = x
-        if self.sr_ratio > 1:
-            sp = _to_map(x, h, w)
-            (pt, pb), (pl, pr) = _tf_same_pads(sp.shape, self.sr_ratio, self.sr_ratio)
-            kv_in = self.sr_norm(_to_seq(self.sr(F.pad(sp, [pl, pr, pt, pb]))))
-        k, v = self.k(kv_in), self.v(kv_in)
-
-        def split(t: torch.Tensor) -> torch.Tensor:
-            return t.reshape(b, -1, self.num_heads, head_dim).transpose(1, 2)
-
-        q, k, v = split(q), split(k), split(v)
-        with torch.autocast(x.device.type, enabled=False):
-            logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(head_dim)
-            attn = torch.softmax(logits, dim=-1).to(q.dtype)
-        out = torch.matmul(attn, v)
+        k, v = self.keys_values(self.reduce(x, h, w) if self.sr_ratio > 1 else x)
+        out = attention(*(split_heads(t, self.num_heads) for t in (self.q(x), k, v)))
         return self.proj(out.transpose(1, 2).reshape(b, n, dim))
 
 
 class MixFFN(nn.Module):
     """MLP around a 3×3 depthwise conv (SegFormer eq. 3), tanh GELU."""
+
+    gelu = "tanh"  # F.gelu's ``approximate``
 
     def __init__(self, dim: int, mlp_ratio: int):
         super().__init__()
@@ -119,9 +173,12 @@ class MixFFN(nn.Module):
         self.dw = nn.Conv2d(hidden, hidden, 3, padding=1, groups=hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
+    def depthwise(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dw(x)
+
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        x = _to_seq(self.dw(_to_map(self.fc1(x), h, w)))
-        return self.fc2(F.gelu(x, approximate="tanh"))
+        x = _to_seq(self.depthwise(_to_map(self.fc1(x), h, w)))
+        return self.fc2(F.gelu(x, approximate=self.gelu))
 
 
 class MiTBlock(nn.Module):

@@ -644,3 +644,96 @@ def test_edt_wrapper_raises_on_what_the_kernels_cannot_take(card):
         with pytest.raises(ValueError):
             torch.ops.deadtrees.signed_distance_maps(seg)
     assert LAUNCHES["edt_columns"] == LAUNCHES["edt_rows"] == 0
+
+
+# the MiT-B5 U-Net's attention at bs 1, 1024²: (heads, queries, keys) of
+# each stage, head size 64
+MIT_STAGES = [(1, 65536, 1024), (2, 16384, 1024), (5, 4096, 1024), (8, 1024, 1024)]
+
+
+@pytest.mark.parametrize("heads,n,m", MIT_STAGES, ids=["stage1", "stage2", "stage3", "stage4"])
+def test_fused_attention_matches_plain(card, heads, n, m):
+    """The pinned fused backend against the plain path, forward and the
+    gradients of q, k and v, bf16 operands. Bar: BAR[bf16]·max(1,
+    max|plain|). Both round P to bfloat16 for the PV product and their
+    outputs to bfloat16; the fused kernel sums the keys in blocks with a
+    running maximum and rounds dS to bfloat16 for dQ and dK, where the
+    plain path keeps dS in float32: a rounding may land on the other side
+    of a tie."""
+    from deadtrees_tpu_torch.core import trace
+    from deadtrees_tpu_torch.models import segformer
+
+    g = torch.Generator(device=card).manual_seed(n + heads)
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=g, device=card).bfloat16().requires_grad_()
+
+    # the model's layouts: q split from (B, N, C) tokens, k and v from the
+    # two halves of the kv projection's (B, M, 2C)
+    x, kv = leaf(1, n, heads * 64), leaf(1, m, 2 * heads * 64)
+    q = segformer.split_heads(x, heads)
+    k, v = (segformer.split_heads(t, heads) for t in kv.chunk(2, dim=-1))
+    do = torch.randn((1, heads, n, 64), generator=g, device=card).bfloat16()
+    trace.reset()
+    trace.enable()
+    try:
+        fused = segformer.attention(q, k, v)
+    finally:
+        trace.disable()
+    assert trace.snapshot()["counters"]["model.attention_fused"] == (1.0, 1)
+    plain = segformer.plain_attention(q, k, v)
+    got = (fused,) + torch.autograd.grad(fused, (x, kv), do)
+    want = (plain,) + torch.autograd.grad(plain, (x, kv), do)
+    for name, a, b in zip(("out", "dq", "dkv"), got, want):
+        assert a.dtype == torch.bfloat16
+        bar = BAR[torch.bfloat16] * max(1.0, float(b.float().abs().max()))
+        assert float((a.float() - b.float()).abs().max()) < bar, name
+
+
+def test_fused_attention_raises_where_its_backend_cannot_take_the_input(card):
+    """No fallback to another backend: float32 operands, which neither
+    fused backend takes, and a head size above the kernels' largest."""
+    from deadtrees_tpu_torch.models import segformer
+
+    f32 = torch.randn((1, 1, 256, 64), device=card)
+    wide = torch.randn((1, 1, 256, 512), device=card, dtype=torch.bfloat16)
+    for t in (f32, wide):
+        with pytest.raises(RuntimeError):
+            segformer.fused_attention(t, t, t)
+
+
+def test_mit_stages_replayed_as_cuda_graphs_match_eager(card, monkeypatch):
+    """A U-Net on mit_b0 under bf16 autocast: the encoder's graphed
+    forward and backward (``models/mit.py``) against the same model run
+    eagerly, loss and every gradient, on two batches (the second a replay
+    of graphs captured on the first). Bar: BAR[bf16]·max(1, max|eager|) a
+    gradient; the replay runs the eager pass's kernels, and cuBLAS may
+    pick another kernel inside a capture."""
+    from deadtrees_tpu_torch.core import trace
+    from deadtrees_tpu_torch.models import create_model
+
+    torch.manual_seed(0)
+    graphed = create_model("unet", "mit_b0", in_channels=4, classes=3).to(card).train()
+    eager = create_model("unet", "mit_b0", in_channels=4, classes=3).to(card).train()
+    eager.load_state_dict(graphed.state_dict())
+    monkeypatch.setattr(eager.encoder, "_graph", lambda x: None)
+    g = torch.Generator(device=card).manual_seed(1)
+    for step in range(2):
+        x = torch.randn((2, 4, 128, 128), generator=g, device=card)
+        losses, grads = [], []
+        for model in (graphed, eager):
+            model.zero_grad(set_to_none=True)
+            trace.reset()
+            trace.enable()
+            try:
+                loss = model(x).float().square().mean()
+            finally:
+                trace.disable()
+            assert trace.snapshot()["counters"]["model.attention_fused"] == (8.0, 8)
+            loss.backward()
+            losses.append(float(loss))
+            grads.append([p.grad.float().clone() for p in model.parameters()])
+        assert graphed.encoder._graphed is not None and eager.encoder._graphed is None
+        assert abs(losses[0] - losses[1]) <= BAR[torch.bfloat16] * abs(losses[1])
+        for a, b in zip(*grads):
+            assert float((a - b).abs().max()) <= BAR[torch.bfloat16] * max(1.0, float(b.abs().max()))
