@@ -14,7 +14,13 @@ Phases (each raises on failure, so the script exits non-zero):
    and the generalized modes. The EDT's two kernels (``ops/edt.py``) at
    the training batch's distance maps (16 × 3 × 512²) bit-equal to their
    plain version, one launch each, with their time, their host time a
-   call, the plain version's time and their bounds.
+   call, the plain version's time and their bounds. Train-mode BatchNorm's
+   four kernels (``ops/batchnorm.py``) at every BatchNorm shape of the
+   b5 and the r34 at bs 16 and of the MiT-B5 U-Net at bs 8 (its
+   channels-last maps) against their plain version (``bn_check``'s bars),
+   bit-identical over two runs; one port train step of each launching
+   2 + 2 kernels a BatchNorm; each model's BatchNorms a step timed
+   against their bytes bound, the plain version and ``F.batch_norm``.
 3. The slice at full width: the EfficientUnet++/b5 flagship from a seeded
    generator, saved with the port's ``save_checkpoint`` and served through
    ``TorchInference(fused_decoder="auto")`` at bs 1, 4, 32 (fused) and 64
@@ -98,6 +104,8 @@ Phases (each raises on failure, so the script exits non-zero):
    kernel 4 launches once a train step and once a recalibration batch, the
    EDT's two kernels once each a batch that gets distance maps (train,
    val, recalibration and test batches, counted at the data module);
+   train-mode BatchNorm's 2 + 2 kernels once a BatchNorm a train step
+   and its 2 forward kernels once a BatchNorm a recalibration batch;
    ``swa.ckpt`` and the best checkpoint serve through ``TorchInference``.
    Run C, ``python -m deadtrees_tpu_torch eval`` on the best checkpoint
    with ``tta=8`` and without, prints the whole ``test/*`` set over the
@@ -328,6 +336,27 @@ TTA_MISMATCH = 1e-2  # near-ties of the bf16 logits between two orientations
 EDT_BAR = 1e-4
 EDT_KERNELS = ("edt_columns", "edt_rows")
 TRAIN_BS = 16
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_reduce", "bn_grad_apply")
+# the benchmarked models' train-mode BatchNorms: (architecture, encoder, bs,
+# side) of the cells train.effunetpp-b5, train.unet-r34, train1024.unet-mit-b5
+BN_MODELS = {
+    "effunetpp-b5": ("efficientunetplusplus", "timm-efficientnet-b5", 16, 512),
+    "unet-r34": ("unet", "resnet34", 16, 512),
+    "unet-mit-b5": ("unet", "mit_b5", 8, 1024),
+}
+BN_BYTES = {"forward": 6, "backward": 10}  # a bf16 element: x read twice, y written; x, dy twice, dx
+# kernels against float64 and the plain version (tests/test_torch_kernels_cuda.py
+# test_batchnorm_kernels_match_plain, with their reasons): mean over the
+# channel's standard deviation and var relative, against float64 statistics;
+# invstd relative against the plain version (float32 sums in another order);
+# dweight and dbias over the sum of their terms' magnitudes, against float64
+# sums, and against the plain version at BN_PLAIN_SUM_BAR (PyTorch's NCHW
+# bf16 backward reads up to 3.3e-4 of that sum off float64, measured on one
+# H100); y and dx within one bf16 ulp of their largest magnitude (y with
+# the floor 1) of the plain version's
+BN_STAT_BAR = 1e-5
+BN_SUM_BAR = 1e-5
+BN_PLAIN_SUM_BAR = 1e-3
 # phase 17: the model zoo at the repo's full width, the configurations of
 # configs/model/unet.yaml, the architecture grid's ResNet row
 # (configs/hparams_search/architecture_grid.yaml), its widest cross, the
@@ -464,7 +493,7 @@ def phase_device():
         for line in _build.ptxas_log(name).splitlines():
             m = re.search(
                 r"(pass\d_(?:bf16_)?kernel|nhwc_p\d_(?:bf16_)?kernel|dw_tile_kernel"
-                r"|augment_[a-z]+_kernel|edt_[a-z]+_kernel)"
+                r"|augment_[a-z]+_kernel|edt_[a-z]+_kernel|bn_[a-z_]+_kernel)"
                 r"(I\w*?E)?E", line)
             if m:
                 entry = f"{m.group(1)}<{(m.group(2) or '')[1:-1]}>"
@@ -627,6 +656,247 @@ def phase_edt_kernels(card: str) -> None:
         f"call; plain {plain_ms:.3f} ms (median of 3); bounds: bytes {bytes_ms:.4f} ms (read "
         f"and written once; the design's 32 B a pixel {design_ms:.4f} ms), operations "
         f"{ops_ms:.4f} ms ({pairs / 1e9:.2f} G (sum, min) pairs, 3 FLOPs each)")
+
+
+def bn_model_inputs(architecture: str, encoder: str, bs: int, side: int) -> dict:
+    """{(shape, channels-last): count} of the model's train-mode BatchNorm
+    inputs at (bs, 4, side, side) under bf16 autocast, read by hooks in a
+    no-grad forward at bs 2 (at bs 1 a MiT's maps take NCHW strides, at
+    bs 2 and up the channels-last ones they keep in training)."""
+    import torch
+
+    from deadtrees_tpu_torch.models import create_model
+    from deadtrees_tpu_torch.models.blocks import BatchNorm2d
+
+    model = create_model(architecture, encoder, in_channels=4, classes=3).cuda().train()
+    seen = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.register_forward_pre_hook(lambda m, a: seen.append(
+                ((bs,) + tuple(a[0].shape[1:]), not a[0].is_contiguous(), a[0].dtype)))
+    with torch.no_grad():
+        model(torch.randn((2, 4, side, side), device="cuda"))
+    if {d for *_, d in seen} != {torch.bfloat16}:
+        raise AssertionError(f"{encoder}: BatchNorm inputs not all bf16: {set(seen)}")
+    out: dict = {}
+    for shape, cl, _ in seen:
+        out[(shape, cl)] = out.get((shape, cl), 0) + 1
+    return out
+
+
+def _bn_case(shape, channels_last: bool, seed: int):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).bfloat16()
+    dy = (torch.randn(shape, generator=g, device="cuda") * 1e-3).bfloat16()
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    c = shape[1]
+    params = [torch.randn(c, generator=g, device="cuda"), torch.randn(c, generator=g, device="cuda"),
+              torch.randn(c, generator=g, device="cuda"),
+              torch.rand(c, generator=g, device="cuda") + 0.5]
+    return x, dy, params
+
+
+def _bn_run(forward, backward, x, dy, params, momentum: float) -> dict:
+    import torch
+
+    w, b, rm, rv = (p.clone() for p in params)
+    nbt = torch.zeros((), dtype=torch.int64, device=x.device)
+    y, mean, invstd = forward(x, w, b, rm, rv, nbt, momentum, 1e-5)
+    dx, dw, db = backward(dy, x, w, mean, invstd)
+    return {"y": y, "mean": mean, "invstd": invstd, "running_mean": rm, "running_var": rv,
+            "num_batches_tracked": nbt, "dx": dx, "dweight": dw, "dbias": db}
+
+
+def bn_check(x, dy, params) -> dict:
+    """The kernels at one shape against float64 and the plain version
+    (bars at BN_STAT_BAR, BN_SUM_BAR, BN_PLAIN_SUM_BAR, one bf16 ulp):
+    each output's largest gap over its bar, and the plain version's own
+    gaps of dweight and dbias from float64; two runs bit-identical, the
+    running buffers the kernels' statistics moved in the plain version's
+    float32 operations. Raises on a gap over its bar."""
+    import torch
+
+    from deadtrees_tpu_torch.ops import batchnorm as bn
+
+    ops = (torch.ops.deadtrees.batch_norm_train, torch.ops.deadtrees.batch_norm_train_backward)
+    got = _bn_run(*ops, x, dy, params, 0.1)
+    again = _bn_run(*ops, x, dy, params, 0.1)
+    stats = _bn_run(*ops, x, dy, params, 1.0)  # running buffers = the batch's statistics
+    want = _bn_run(bn.batch_norm_train_reference, bn.batch_norm_train_backward_reference,
+                   x, dy, params, 1.0)
+    differ = [k for k in got if not torch.equal(got[k], again[k])]
+    if differ:
+        raise AssertionError(f"BatchNorm kernels at {tuple(x.shape)}: {differ} differ between runs")
+    dims = (0, 2, 3)
+    var, mean = torch.var_mean(x.double(), dim=dims, correction=0)
+    std = torch.sqrt(var + 1e-5)
+    xhat = (x.double() - mean[:, None, None]) / std[:, None, None]
+    sums = {"dbias": dy.double(), "dweight": dy.double() * xhat}
+    del xhat
+
+    def gap(a, b, scale):
+        return float(((a.double() - b.double()).abs() / scale).max())
+
+    ratios = {
+        "mean": gap(got["mean"], mean, std) / BN_STAT_BAR,
+        "var": gap(stats["running_var"], var, var) / BN_STAT_BAR,
+        "invstd": gap(got["invstd"], want["invstd"], want["invstd"].double()) / BN_STAT_BAR,
+    }
+    plain = {}
+    for key, terms in sums.items():
+        scale = terms.abs().sum(dims)
+        exact = terms.sum(dims)
+        ratios[key] = gap(got[key], exact, scale) / BN_SUM_BAR
+        ratios[key + "_plain"] = gap(got[key], want[key], scale) / BN_PLAIN_SUM_BAR
+        plain[key] = gap(want[key], exact, scale)
+    del sums
+    for key, floor in (("y", 1.0), ("dx", 0.0)):
+        ref = want[key].float()
+        ratios[key] = max_err(got[key], ref) / (NHWC_P2_ULP_BAR * max(floor, float(ref.abs().max())))
+    rm0, rv0 = params[2], params[3]
+    exact = {
+        "running_mean": torch.equal(got["running_mean"], rm0 * 0.9 + got["mean"] * 0.1)
+        and torch.equal(stats["running_mean"], stats["mean"]),
+        "running_var": torch.equal(got["running_var"], rv0 * 0.9 + stats["running_var"] * 0.1),
+        "num_batches_tracked": int(got["num_batches_tracked"]) == 1,
+        "layout": got["y"].stride() == got["dx"].stride() == x.stride(),
+    }
+    over = {k: v for k, v in ratios.items() if not v <= 1.0}
+    if over or not all(exact.values()):
+        raise AssertionError(f"BatchNorm kernels at {tuple(x.shape)}: gap over bar {over}, "
+                             f"exact {exact}")
+    return ratios, plain
+
+
+def bn_host_us() -> dict:
+    """Host time of one train-mode ``BatchNorm2d`` forward and backward
+    through autograd (bf16, (4, 64, 16, 16): the card's queue never
+    empties), µs: the op, and ``F.batch_norm`` (PyTorch's native kernels
+    and C++ backward) on the same tensors."""
+    import torch
+    import torch.nn.functional as F
+
+    from deadtrees_tpu_torch.models.blocks import BatchNorm2d
+
+    module = BatchNorm2d(64).cuda().train()
+    x = torch.randn((4, 64, 16, 16), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    dy = torch.randn_like(x)
+    rm, rv = module.running_mean.clone(), module.running_var.clone()
+    return {
+        "op": 1e3 * host_ms_per_call(lambda: module(x).backward(dy), calls=100),
+        "library": 1e3 * host_ms_per_call(lambda: F.batch_norm(
+            x, rm, rv, module.weight, module.bias, True, 0.1, 1e-5).backward(dy), calls=100),
+    }
+
+
+def phase_bn_kernels(card: str) -> dict:
+    """Phase 2's train-mode BatchNorm (``ops/batchnorm.py``): at every
+    BatchNorm shape of the three benchmarked models (the b5 and the r34 at
+    bs 16, the MiT-B5 U-Net at bs 8, in the layout each gets) the four
+    kernels against the plain version (``bn_check``), bit-identical over
+    two runs; one port train step of each model launches 2 + 2 kernels a
+    BatchNorm; each model's BatchNorms a step timed (forward and backward,
+    CUDA events, each shape × its count) against the bytes bound, the plain
+    version and ``F.batch_norm`` with its backward (PyTorch's native bf16
+    kernels, the library yardstick), each call with the L2 cache cold, as
+    a layer of a step meets it. Returns each model's line with its
+    shapes' times (``shapes_ms``: shape, channels-last, count, kernels,
+    plain and library ms, bound ms), and a layer's host time
+    (``bn_host_us``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deadtrees_tpu_torch.models import create_model
+    from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from deadtrees_tpu_torch.ops import batchnorm as bn
+
+    t_phase = time.perf_counter()
+    bn.load()
+    ops = (torch.ops.deadtrees.batch_norm_train, torch.ops.deadtrees.batch_norm_train_backward)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, (architecture, encoder, bs, side) in BN_MODELS.items():
+        inputs = bn_model_inputs(architecture, encoder, bs, side)
+        torch.cuda.empty_cache()
+        n_bn = sum(inputs.values())
+        worst: dict = {}
+        plain_gap: dict = {}
+        ms = {"kernels": 0.0, "plain": 0.0, "library": 0.0}
+        rows = []
+        elements = 0
+        for i, ((shape, cl), count) in enumerate(sorted(inputs.items())):
+            x, dy, params = _bn_case(shape, cl, SEED + i)
+            ratios, plain_gaps = bn_check(x, dy, params)
+            for k, v in ratios.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            for k, v in plain_gaps.items():
+                plain_gap[k] = max(plain_gap.get(k, 0.0), v)
+            elements += count * x.numel()
+            w, b, rm, rv = (p.clone() for p in params)
+            nbt = torch.zeros((), dtype=torch.int64, device="cuda")
+            xl = x.detach().requires_grad_()
+            wl, bl = w.clone().requires_grad_(), b.clone().requires_grad_()
+
+            def kernels():
+                y, mean, invstd = ops[0](x, w, b, rm, rv, nbt, 0.1, 1e-5)
+                ops[1](dy, x, w, mean, invstd)
+
+            def plain():
+                y, mean, invstd = bn.batch_norm_train_reference(x, w, b, rm, rv, nbt, 0.1, 1e-5)
+                bn.batch_norm_train_backward_reference(dy, x, w, mean, invstd)
+
+            def library():
+                y = F.batch_norm(xl, rm, rv, wl, bl, True, 0.1, 1e-5)
+                torch.autograd.grad(y, (xl, wl, bl), dy)
+
+            row = [cuda_time_ms(kernels, reps=11, flush=flush),
+                   cuda_time_ms(plain, reps=5, warmup=1, flush=flush),
+                   cuda_time_ms(library, reps=5, warmup=1, flush=flush)]
+            for key, t in zip(ms, row):
+                ms[key] += count * t
+            rows.append([list(shape), cl, count, *row,
+                         x.numel() * sum(BN_BYTES.values()) / HBM_BYTES_PER_S * 1e3])
+            del x, dy, xl
+        bound_ms = elements * sum(BN_BYTES.values()) / HBM_BYTES_PER_S * 1e3
+
+        model = create_model(architecture, encoder, in_channels=4, classes=3).cuda().train()
+        state, train_step = zoo_step_setup(model)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        mask = torch.randint(0, 3, (bs, side, side), generator=g, device="cuda")
+        from deadtrees_tpu_torch.losses import batch_one_hot2dist, class2one_hot
+
+        batch = {"image": torch.randn((bs, 4, side, side), generator=g, device="cuda"),
+                 "mask": mask, "distmap": batch_one_hot2dist(class2one_hot(mask, 3))}
+        train_step(state, batch, 1)  # a MiT captures its encoder's graphs here
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        train_step(state, batch, 1)
+        torch.cuda.synchronize()
+        launches = {k: LAUNCHES[k] for k in BN_KERNELS}
+        if launches != dict.fromkeys(BN_KERNELS, n_bn):
+            raise AssertionError(f"{name}: {n_bn} BatchNorms, a train step launched {launches}")
+        del model, state, train_step, batch
+        torch.cuda.empty_cache()
+        line = {
+            "model": name, "bs": bs, "side": side, "batchnorms": n_bn, "shapes": len(inputs),
+            "channels_last": sum(c for (_, cl), c in inputs.items() if cl),
+            "elements_per_step": elements, "launches_per_step": launches,
+            "ms_per_step": ms["kernels"], "bound_ms": bound_ms,
+            "bound_pct": 100 * bound_ms / ms["kernels"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "worst_gap_over_bar": worst,
+            "plain_gap_from_float64": plain_gap,
+        }
+        log("bn " + json.dumps(line))
+        out[name] = dict(line, shapes_ms=rows)
+    del flush
+    out["host_us"] = bn_host_us()
+    log("bn host " + json.dumps(out["host_us"]))
+    log(f"BatchNorm kernels on {card}: phase {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2222,6 +2492,7 @@ def phase_recipe(card: str) -> dict:
     from deadtrees_tpu_torch.data.pipeline import DeadtreesDataModule
     from deadtrees_tpu_torch.infer import TorchInference
     from deadtrees_tpu_torch.models import variables_from_state_dict
+    from deadtrees_tpu_torch.models.blocks import BatchNorm2d
     from deadtrees_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from deadtrees_tpu_torch.train import Trainer, optimizer_state_dict, train
 
@@ -2326,7 +2597,18 @@ def phase_recipe(card: str) -> dict:
         raise AssertionError(f"EDT launches {counts} for {len(mapped)} batches with maps "
                              f"({steps} train steps, {trainer.swa_bn_batches} recalibration "
                              "batches and the val and test batches): expected 1 + 1 a batch")
-    if any(v for k, v in counts.items() if k not in (AUGMENT, *EDT_KERNELS)):
+    # run B trains the encoder too (unfrozen from epoch 1): every BatchNorm
+    # runs in train mode at each step and recalibration batch, backward at
+    # each step; val and test run them in eval mode
+    n_bn = sum(isinstance(m, BatchNorm2d) for m in trainer.model.modules())
+    want_bn = {"bn_stats": n_bn * (steps + trainer.swa_bn_batches),
+               "bn_grad_reduce": n_bn * steps}
+    want_bn.update(bn_apply=want_bn["bn_stats"], bn_grad_apply=want_bn["bn_grad_reduce"])
+    if {k: counts[k] for k in BN_KERNELS} != want_bn:
+        raise AssertionError(f"BatchNorm launches {counts} for {n_bn} BatchNorms, {steps} train "
+                             f"steps and {trainer.swa_bn_batches} recalibration batches: "
+                             f"expected {want_bn}")
+    if any(v for k, v in counts.items() if k not in (AUGMENT, *EDT_KERNELS, *BN_KERNELS)):
         raise AssertionError(f"the recipe launched another kernel: {counts}")
     if abs(stage - 1 / 3) > 1e-9 or int(trainer.state.optimizer.count) != 2 * TRAIN_STEPS:
         raise AssertionError(f"the stage at the end: lr x {stage}, count "
@@ -2343,7 +2625,7 @@ def phase_recipe(card: str) -> dict:
     out.update(
         launches=counts[AUGMENT], train_steps=steps, swa_bn_batches=trainer.swa_bn_batches,
         edt_columns=counts["edt_columns"], edt_rows=counts["edt_rows"], edt_batches=len(mapped),
-        resume_checked_leaves=trainer.checked_leaves,
+        bn_launches={k: counts[k] for k in BN_KERNELS}, resume_checked_leaves=trainer.checked_leaves,
         resume_load_s=trainer.timings["resume_s"][0],
         epochs=[{"epoch": e, "wall_s": w, "steps_per_s": float(r["steps_per_sec"]),
                  "train_loss": float(r["train/total_loss"]), "val_dice": float(r["val/dice"])}
@@ -4222,6 +4504,8 @@ def main() -> int:
             model = model.cuda().eval()
             phase_kernels(model, errs)
             phase_edt_kernels(card)
+            phase_bn_kernels(card)
+            torch.cuda.empty_cache()  # its train steps' blocks, before the warmers need theirs
 
             fused, plain = phase_slice(ckpt, hp)
             counts = phase_server(ckpt)

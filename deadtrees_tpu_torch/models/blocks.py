@@ -25,6 +25,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from deadtrees_tpu_torch.ops.batchnorm import batch_norm_train
 from deadtrees_tpu_torch.parallel.mesh import active_mesh
 
 
@@ -86,8 +87,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     Inside ``parallel.mesh.global_batch`` of several ranks the statistics
     are those of the global batch (:class:`_GlobalBatchNorm`), as XLA
     computes them for the JAX step under a mesh; ``nn.SyncBatchNorm`` would
-    move ``running_var`` toward the unbiased variance. Otherwise nothing
-    changes, the numbers included.
+    move ``running_var`` toward the unbiased variance. Otherwise the train
+    mode is one op, ``ops.batchnorm.batch_norm_train``: the kernels of
+    ``ops/csrc/batchnorm.cu`` on CUDA, the plain version on the CPU.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -103,13 +105,8 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.mul_(1.0 - m).add_(var * m)
                 self.num_batches_tracked.add_(1)
             return y
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean * m)
-            self.running_var.mul_(1.0 - m).add_(var * m)
-            self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return batch_norm_train(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                self.num_batches_tracked, self.momentum, self.eps)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,7 @@ from deadtrees_tpu_torch.ops.augment import (
     augment_jitter_normalize,
     augment_jitter_normalize_reference,
 )
+from deadtrees_tpu_torch.ops.batchnorm import batch_norm_train, batch_norm_train_reference
 from deadtrees_tpu_torch.ops.depthwise import depthwise_conv2d, depthwise_conv2d_reference
 from deadtrees_tpu_torch.ops.edt import signed_distance_maps
 from deadtrees_tpu_torch.ops.fused_cell import fused_ir_fat, fused_ir_fat_reference
@@ -33,6 +34,8 @@ __all__ = [
     "apply_head",
     "augment_jitter_normalize",
     "augment_jitter_normalize_reference",
+    "batch_norm_train",
+    "batch_norm_train_reference",
     "depthwise_conv2d",
     "depthwise_conv2d_reference",
     "encode_features",

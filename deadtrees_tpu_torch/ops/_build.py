@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/*.cu`` file is compiled on first CUDA use by ``nvcc`` into a
 shared library with a plain C interface, loaded with ``ctypes``:
@@ -6,13 +6,17 @@ shared library with a plain C interface, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
 
+A ``csrc/*.cpp`` file (C++ against PyTorch's headers, no CUDA header:
+custom ops that register themselves when loaded) is compiled by the host
+compiler (``$CXX``, else ``c++`` or ``g++``) and linked to PyTorch's libraries.
+
 The library name carries a hash of the source and of the ``csrc/*.cuh``
-headers, so an edited kernel is
-rebuilt and an unchanged one is reused. ``build_all`` starts one ``nvcc``
+headers (and, for C++, of PyTorch's version), so an edited source is
+rebuilt and an unchanged one is reused. ``build_all`` starts one compiler
 per source, all at once. A variant of a source built with preprocessor
 macros (``defines``, e.g. an instrumented build for a probe) is a library
 of its own beside the plain one. Nothing here runs at import time:
-importing the package needs no CUDA toolkit.
+importing the package needs no compiler.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("fused_ir_chw", "fused_ir_nhwc", "depthwise", "augment", "edt")
+SOURCES = ("fused_ir_chw", "fused_ir_nhwc", "depthwise", "augment", "edt", "batchnorm",
+           "batchnorm_op")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,6 +59,45 @@ def _nvcc() -> str:
     )
 
 
+def _source(name: str) -> Path:
+    cpp = CSRC / f"{name}.cpp"
+    return cpp if cpp.exists() else CSRC / f"{name}.cu"
+
+
+def _torch_dirs():
+    """PyTorch's include directories and its library directory."""
+    import torch
+
+    root = Path(torch.__file__).resolve().parent
+    return [root / "include", root / "include" / "torch" / "csrc" / "api" / "include"], root / "lib"
+
+
+def _cxx_flags(defines: Sequence[str] = ()) -> tuple:
+    import torch
+
+    includes, _ = _torch_dirs()
+    return ("-std=c++17", "-O2", "-fPIC", "-shared",
+            f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+            *(f"-I{d}" for d in includes), *(f"-D{d}" for d in defines))
+
+
+def _command(name: str, defines: Sequence[str], out: Path) -> List[str]:
+    src = _source(name)
+    if src.suffix == ".cpp":
+        _, lib = _torch_dirs()
+        return [_cxx(), *_cxx_flags(defines), "-o", str(out), str(src),
+                f"-L{lib}", f"-Wl,-rpath,{lib}", "-lc10", "-ltorch_cpu", "-ltorch"]
+    return [_nvcc(), *_flags(defines), "-o", str(out), str(src)]
+
+
+def _cxx() -> str:
+    found = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not found:
+        raise RuntimeError("no C++ compiler ($CXX, c++, g++): the port's C++ ops are built "
+                           "from source at first use")
+    return found
+
+
 def _stem(name: str, defines: Sequence[str] = ()) -> str:
     """The library's name: the source's, and its macros for a variant."""
     return "-".join((name, *(d.lower() for d in defines)))
@@ -64,19 +108,25 @@ def _flags(defines: Sequence[str] = ()) -> tuple:
 
 
 def _target(name: str, defines: Sequence[str] = ()) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    src = _source(name)
+    digest = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # any source may include a header
         digest.update(header.read_bytes())
-    digest.update(" ".join(_flags(defines)).encode())
+    if src.suffix == ".cpp":
+        import torch
+
+        digest.update(" ".join((torch.__version__, *_cxx_flags(defines))).encode())
+    else:
+        digest.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{_stem(name, defines)}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str, defines: Sequence[str] = ()):
-    """Start nvcc for one source; returns (process, tmp path, target)."""
+    """Start the compiler for one source; returns (process, tmp path, target)."""
     target = _target(name, defines)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = _command(name, defines, tmp)
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -85,8 +135,8 @@ def _start(name: str, defines: Sequence[str] = ()):
 
 def build_all(names: List[str] = SOURCES, defines: Sequence[str] = ()) -> Dict[str, ctypes.CDLL]:
     """Compile every missing library in parallel (each source with the
-    macros ``defines``) and load all of them. Raises with nvcc's output
-    when a build fails."""
+    macros ``defines``) and load all of them. Raises with the compiler's
+    output when a build fails."""
     defines = tuple(defines)
     with _lock:
         pending = {}
@@ -99,7 +149,7 @@ def build_all(names: List[str] = SOURCES, defines: Sequence[str] = ()) -> Dict[s
             (BUILD_DIR / f"{_stem(name, defines)}.log").write_text(log)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+                raise RuntimeError(f"building {_source(name).name} failed:\n{log}")
             os.replace(tmp, target)
             build_seconds[_stem(name, defines)] = time.perf_counter() - t0
         for name in names:
@@ -110,13 +160,14 @@ def build_all(names: List[str] = SOURCES, defines: Sequence[str] = ()) -> Dict[s
 
 
 def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (built with the macros
-    ``defines``), built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` or ``.cpp`` (built with
+    the macros ``defines``), built on first use."""
     lib = _libs.get(_stem(name, defines))
     return lib if lib is not None else build_all([name], defines)[name]
 
 
 def ptxas_log(name: str) -> str:
-    """nvcc's register/shared-memory report from the last build, if any."""
+    """The compiler's report from the last build (nvcc's: registers and
+    shared memory), if any."""
     path = BUILD_DIR / f"{name}.log"
     return path.read_text() if path.exists() else ""

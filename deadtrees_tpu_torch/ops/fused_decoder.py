@@ -28,7 +28,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from deadtrees_tpu_torch.models.blocks import upsample2x_nearest
 from deadtrees_tpu_torch.ops import fused_cell
 from deadtrees_tpu_torch.ops.depthwise import depthwise_conv2d
 from deadtrees_tpu_torch.ops.fused_mbconv import (
@@ -70,7 +69,7 @@ def folded_block(x: torch.Tensor, fp: FoldedBlockParams) -> torch.Tensor:
 
 def _cell(folded: Folded, name: str, x: torch.Tensor, skip) -> torch.Tensor:
     """One decoder grid cell: up2x → concat skip → fused block ×2."""
-    x = upsample2x_nearest(x)
+    x = F.interpolate(x, scale_factor=2, mode="nearest")
     if skip is not None:
         x = torch.cat([x] + list(skip), dim=1)
     fp0, fp1 = folded[name]

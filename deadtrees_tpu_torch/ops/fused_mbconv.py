@@ -42,13 +42,15 @@ NHWC kernel pair of ``ops/fused_cell.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from deadtrees_tpu_torch.models.blocks import InvertedResidual
 from deadtrees_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts  # noqa: F401
+
+if TYPE_CHECKING:  # the models import the ops package; the ops import no model
+    from deadtrees_tpu_torch.models.blocks import InvertedResidual
 
 ACTIVATIONS = ("hswish", "silu")
 SKIPS = ("auto", "identity", "conv", "none")

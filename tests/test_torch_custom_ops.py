@@ -3,7 +3,9 @@
 Each of the five kernels is a ``torch.library`` custom op of the port's
 ``deadtrees`` namespace (kernel 1's two passes, the NHWC pair as kernel
 2 and as kernel 3, the augment kernel, the depthwise kernel), and so are
-the EDT's two kernels (one op): nine ops, each checked here by
+the EDT's two kernels (one op) and train-mode BatchNorm's four (two
+ops: its forward, which mutates the running buffers, and its backward):
+eleven ops, each checked here by
 ``torch.library.opcheck`` on CPU tensors (its schema, its fake
 implementation's shapes and dtypes, and its run under AOTAutograd),
 where the op runs the kernel's plain version. The compile options of
@@ -88,6 +90,11 @@ def _op_cases():
         "signed_distance_maps": (torch.ops.deadtrees.signed_distance_maps,
                                  (class2one_hot(torch.from_numpy(
                                      np.random.default_rng(2).integers(0, 3, (2, 9, 7))), 3),)),
+        "batch_norm_train": (torch.ops.deadtrees.batch_norm_train,
+                             (xn.permute(0, 3, 1, 2), t(CIN), t(CIN), t(CIN), t(CIN) ** 2,
+                              torch.zeros((), dtype=torch.int64), 0.1, 1e-5)),
+        "batch_norm_train_backward": (torch.ops.deadtrees.batch_norm_train_backward,
+                                      (t(2, CIN, 10, 12), x, t(CIN), t(CIN), t(CIN) ** 2)),
     }
 
 

@@ -737,3 +737,158 @@ def test_mit_stages_replayed_as_cuda_graphs_match_eager(card, monkeypatch):
         assert abs(losses[0] - losses[1]) <= BAR[torch.bfloat16] * abs(losses[1])
         for a, b in zip(*grads):
             assert float((a - b).abs().max()) <= BAR[torch.bfloat16] * max(1.0, float(b.abs().max()))
+
+
+# train-mode BatchNorm (ops/batchnorm.py, ops/csrc/batchnorm_op.cpp): (shape, dtype, channels-last,
+# misaligned) of the kernels' paths: 16-byte vectors on NCHW (the b5's
+# stem and deepest widths at bs 16) and on NHWC (the MiT decoder's
+# layout), single elements where C % 8, H·W % 8 or the alignment rule
+# them out, float32
+BN_CASES = {
+    "b5_stem_bf16": ((16, 48, 256, 256), torch.bfloat16, False, False),
+    "b5_deep_bf16": ((16, 3072, 16, 16), torch.bfloat16, False, False),
+    "mit_decoder_nhwc_bf16": ((8, 16, 256, 256), torch.bfloat16, True, False),
+    "nhwc_c12_bf16": ((4, 12, 33, 35), torch.bfloat16, True, False),
+    "odd_hw_f32": ((3, 20, 37, 61), torch.float32, False, False),
+    "nhwc_f32": ((4, 96, 30, 30), torch.float32, True, False),
+    "misaligned_bf16": ((2, 24, 64, 64), torch.bfloat16, False, True),
+}
+
+
+def _bn_inputs_on(card, shape, dtype, channels_last, misaligned):
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+    n, c, h, w = shape
+    x = (torch.randn(shape, generator=g, device=card) * 3 + 1.5).to(dtype)
+    if misaligned:  # one element into its storage: single-element loads
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(shape)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(shape, generator=g, device=card).to(dtype)
+    if channels_last:
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    params = [torch.randn(c, generator=g, device=card), torch.randn(c, generator=g, device=card),
+              torch.randn(c, generator=g, device=card),
+              torch.rand(c, generator=g, device=card) + 0.5]
+    return x, dy, params
+
+
+def _bn_forward_backward(forward, backward, x, dy, params, momentum):
+    w, b, rm, rv = (p.clone() for p in params)
+    nbt = torch.zeros((), dtype=torch.int64, device=x.device)
+    y, mean, invstd = forward(x, w, b, rm, rv, nbt, momentum, 1e-5)
+    dx, dw, db = backward(dy, x, w, mean, invstd)
+    return {"y": y, "mean": mean, "invstd": invstd, "running_mean": rm, "running_var": rv,
+            "num_batches_tracked": nbt, "dx": dx, "dweight": dw, "dbias": db}
+
+
+@pytest.mark.parametrize("name", sorted(BN_CASES))
+def test_batchnorm_kernels_match_plain(card, name):
+    """The four kernels against float64 and against the plain version on
+    the same card tensors. Bars, with their reasons: mean within 1e-5 of
+    the channel's standard deviation and var relative 1e-5 of float64
+    statistics, invstd relative 1e-5 of the plain version's (float32 sums
+    in another order); dweight and dbias within 1e-5 of the sum of their
+    terms' magnitudes of float64 sums, and within 1e-3 of it of the plain
+    version's (PyTorch's NCHW bf16 backward reads up to 3.3e-4 of that sum
+    off float64); y and dx within one ulp of their largest magnitude in
+    bfloat16, 1e-5 of it in float32, of the plain version's (y is
+    x·scale + shift where the plain version takes (x − mean)·invstd·w + b;
+    a rounding to bfloat16 may land on the other side of a tie). The
+    running buffers are the kernels' own statistics moved by momentum in
+    the plain version's float32 operations, bit for bit; two runs are
+    bit-identical; 2 + 2 launches; outputs in x's type and layout."""
+    from deadtrees_tpu_torch.ops import batchnorm as bn
+
+    bn.load()
+    shape, dtype, channels_last, misaligned = BN_CASES[name]
+    x, dy, params = _bn_inputs_on(card, shape, dtype, channels_last, misaligned)
+    kernels = (torch.ops.deadtrees.batch_norm_train, torch.ops.deadtrees.batch_norm_train_backward)
+    reset_launch_counts()
+    got = _bn_forward_backward(*kernels, x, dy, params, 0.1)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] for k in bn.KERNELS} == dict.fromkeys(bn.KERNELS, 1)
+    again = _bn_forward_backward(*kernels, x, dy, params, 0.1)
+    for key in got:
+        assert torch.equal(got[key], again[key]), key
+    stats = _bn_forward_backward(*kernels, x, dy, params, 1.0)  # running = the batch's
+    want = _bn_forward_backward(bn.batch_norm_train_reference,
+                                bn.batch_norm_train_backward_reference, x, dy, params, 1.0)
+    for key in ("y", "dx"):
+        assert got[key].dtype == dtype and got[key].stride() == x.stride(), key
+    dims = (0, 2, 3)
+    var, mean = torch.var_mean(x.double(), dim=dims, correction=0)
+    std = torch.sqrt(var + 1e-5)
+    assert torch.equal(stats["running_mean"], stats["mean"])
+    assert torch.equal(got["num_batches_tracked"].cpu(), torch.tensor(1))
+    assert float(((got["mean"] - mean).abs() / std).max()) <= 1e-5
+    assert float(((stats["running_var"] - var).abs() / var).max()) <= 1e-5
+    assert float(((got["invstd"] - want["invstd"]).abs() / want["invstd"]).max()) <= 1e-5
+    w0, b0, rm0, rv0 = params
+    assert torch.equal(got["running_mean"], rm0 * 0.9 + got["mean"] * 0.1)
+    assert torch.equal(got["running_var"], rv0 * 0.9 + stats["running_var"] * 0.1)
+    rel = ULP_BAR if dtype == torch.bfloat16 else 1e-5
+    for key in ("y", "dx"):
+        ref = want[key].float()
+        floor = 1.0 if key == "y" else 0.0
+        bar = rel * max(floor, float(ref.abs().max()))
+        assert float((got[key].float() - ref).abs().max()) <= bar, key
+    xhat = (x.double() - mean[:, None, None]) / std[:, None, None]
+    for key, terms in (("dbias", dy.double()), ("dweight", dy.double() * xhat)):
+        scale = terms.abs().sum(dims)
+        assert bool(((got[key] - terms.sum(dims)).abs() <= 1e-5 * scale).all()), key
+        assert bool(((got[key] - want[key]).abs() <= 1e-3 * scale).all()), key
+
+
+def test_batchnorm_module_on_the_card_is_the_op(card):
+    """``BatchNorm2d`` in train mode under bf16 autocast, through autograd:
+    the op's kernels, 2 launches forward and 2 backward, the same numbers
+    as the ops called directly."""
+    from deadtrees_tpu_torch.models.blocks import BatchNorm2d
+    from deadtrees_tpu_torch.ops import batchnorm as bn
+
+    x, dy, params = _bn_inputs_on(card, (4, 40, 32, 32), torch.bfloat16, False, False)
+    module = BatchNorm2d(40).to(card).train()
+    with torch.no_grad():
+        for p, v in zip((module.weight, module.bias, module.running_mean, module.running_var),
+                        params):
+            p.copy_(v)
+    xg = x.clone().requires_grad_()
+    reset_launch_counts()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = module(xg)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] for k in bn.KERNELS} == dict.fromkeys(bn.KERNELS, 1)
+    want = _bn_forward_backward(torch.ops.deadtrees.batch_norm_train,
+                                torch.ops.deadtrees.batch_norm_train_backward, x, dy, params, 0.1)
+    assert torch.equal(y, want["y"]) and torch.equal(xg.grad, want["dx"])
+    assert torch.equal(module.weight.grad, want["dweight"])
+    assert torch.equal(module.bias.grad, want["dbias"])
+    assert torch.equal(module.running_var, want["running_var"])
+    assert int(module.num_batches_tracked) == 1
+
+
+def test_batchnorm_wrapper_raises_on_what_the_kernels_cannot_take(card):
+    """No fallback: the CUDA implementation raises, and launches nothing."""
+    from deadtrees_tpu_torch.ops import batchnorm as bn
+
+    bn.load()
+    c = 8
+    ok = [torch.ones(c, device=card), torch.zeros(c, device=card), torch.zeros(c, device=card),
+          torch.ones(c, device=card), torch.zeros((), dtype=torch.int64, device=card)]
+    bad_x = [torch.zeros((2, c, 4, 4), dtype=torch.float16, device=card),
+             torch.zeros((2, c, 4, 8), device=card)[..., ::2],
+             torch.zeros((2, 4, c, 4), device=card).transpose(1, 2),
+             torch.zeros((2, c, 16), device=card)]
+    reset_launch_counts()
+    for x in bad_x:
+        with pytest.raises(ValueError):
+            torch.ops.deadtrees.batch_norm_train(x, *ok, 0.1, 1e-5)
+    x = torch.zeros((2, c, 4, 4), device=card)
+    for i, bad in ((0, ok[0].bfloat16()), (1, torch.zeros(c + 1, device=card)),
+                   (3, ok[3].double()), (4, torch.zeros((), dtype=torch.int32, device=card))):
+        args = list(ok)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            torch.ops.deadtrees.batch_norm_train(x, *args, 0.1, 1e-5)
+    assert all(LAUNCHES[k] == 0 for k in bn.KERNELS)
